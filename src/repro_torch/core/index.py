@@ -1,0 +1,802 @@
+"""Build-once / query-many DiskJoin session API.
+
+    index = DiskJoinIndex.build(store, config, workdir)   # bucketize ONCE
+    r1 = index.self_join(epsilon=0.2)     # graph/schedule only
+    r2 = index.self_join(epsilon=0.3)     # reuses bucketing
+    ids, dists = index.query(q, epsilon=0.25)   # online point lookup
+    ...
+    index = DiskJoinIndex.open(workdir)   # reattach later, no rescan
+
+``build`` writes a manifest (build config, layout order, store kind) next
+to the bucketed store, so ``open`` reattaches without touching the flat
+dataset. The manifest and the bucket store are the JAX package's format
+(``diskjoin-index/v1``) byte for byte, so an index built by either package
+opens in the other. The instance owns, for its lifetime, the bucketed
+store, ONE ``BufferPool`` and ONE ``PipelineStats``: batch joins and point
+queries share one telemetry surface, and queries keep recently read
+buckets warm in pool slabs.
+
+The online path is split into a plan phase (``plan_probes`` — candidate
+buckets from in-memory metadata, no I/O) and an execute phase
+(``execute_probes`` — one read per distinct bucket, fanned out to every
+member query's verify).
+
+Port of the JAX package's ``core/index.py``. Every session has a
+``torch.device``: ``build``/``open`` take ``device=None`` (CUDA) and raise
+without CUDA unless given ``device="cpu"``. Not ported yet (ROADMAP.md,
+module queue): resumable builds, cross-joins, striped stores,
+``io_mode="prefetch"``, the planner (``plan_mode="on"``), live
+observability and residency snapshots.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from repro_torch.compute import next_pow2, query_verify_compact
+from repro_torch.core import ordering
+from repro_torch.core.bucket_graph import build_bucket_graph
+from repro_torch.core.bucketize import bucketize
+from repro_torch.core.center_index import make_center_index
+from repro_torch.core.executor import PAD_COORD, JoinExecutor
+from repro_torch.core.pruning import prune_candidates
+from repro_torch.core.types import (BUILD_TIME_FIELDS, QUERY_TIME_FIELDS,
+                                    BucketMeta, BuildConfig, JoinConfig,
+                                    JoinResult, QueryConfig,
+                                    finalize_timings, merge_config,
+                                    resolve_bucket_capacity,
+                                    resolve_cache_buckets, split_config)
+from repro_torch.device import resolve_device, to_device
+from repro_torch.ft.atomic import atomic_write_json
+from repro_torch.io import BufferPool, PipelineStats
+from repro_torch.io.retry import read_with_retry
+from repro_torch.obs import get_tracer
+from repro_torch.store.vector_store import BucketedVectorStore, FlatVectorStore
+
+MANIFEST_NAME = "diskjoin_index.json"
+MANIFEST_FORMAT = "diskjoin-index/v1"
+# pool slabs the query warm cache always leaves free (liveness headroom
+# for the queries' own transient reads)
+_WARM_RESERVE = 2
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, "
+                               f"module queue: {item}")
+
+
+class DiskJoinIndex:
+    """Persistent session over one bucketized dataset. Use ``build``/``open``."""
+
+    def __init__(self, workdir: str, store, meta: BucketMeta,
+                 build_config: BuildConfig,
+                 query_defaults: QueryConfig | None, *,
+                 device: torch.device,
+                 build_timings: dict | None = None,
+                 build_seconds: float = 0.0):
+        self.workdir = workdir
+        self.store = store
+        self.meta = meta
+        self.build_config = build_config
+        self.query_defaults = query_defaults
+        self.device = device
+        self.build_timings = dict(build_timings or {})
+        self.build_seconds = float(build_seconds)
+        self.stats = PipelineStats()        # ONE lifetime telemetry surface
+        # session tracer: None → resolve the current (module-level) tracer
+        # at call time, so `with trace_session():` records without
+        # re-plumbing; set to a Tracer to pin one
+        self.tracer = None
+        self.bucket_capacity = resolve_bucket_capacity(build_config,
+                                                       meta.sizes)
+        self._pool: BufferPool | None = None
+        self._pool_lock = threading.Lock()
+        self._center_index = None
+        self._center_lock = threading.Lock()
+        self._graph_cache: dict = {}
+        self._order_cache: dict = {}
+        # warm point-query cache: bucket -> (pool slot, rows); each entry
+        # holds one pool reference
+        self._warm: OrderedDict[int, tuple[int, int]] = OrderedDict()
+        self._warm_lock = threading.RLock()
+        self._joins_active = 0
+        self._closed = False
+
+    # -- construction ---------------------------------------------------------
+    @classmethod
+    def build(cls, store: FlatVectorStore,
+              config: JoinConfig | BuildConfig,
+              workdir: str | None = None, *,
+              layout: str = "auto", device=None) -> "DiskJoinIndex":
+        """Bucketize + lay out ``store`` once under ``workdir`` and return
+        the attached session. ``config`` may be a flat ``JoinConfig`` (its
+        query-time half becomes the session's per-call defaults) or a bare
+        ``BuildConfig`` (then every query call must pass ``epsilon``).
+
+        ``layout`` chooses the disk extent order used when coalescing is
+        on: ``"auto"`` plans the join schedule order for the config's
+        default parameters (schedule-adjacent ⇒ disk-adjacent);
+        ``"spatial"`` uses the ε-free nearest-neighbor center tour.
+        Without coalescing no reordering is needed.
+
+        ``device``: ``None`` (CUDA) or ``"cpu"``; raises without CUDA
+        unless ``"cpu"`` is asked for.
+        """
+        dev = resolve_device(device)
+        if isinstance(config, BuildConfig):
+            build_cfg, query_defaults = config, None
+        else:
+            build_cfg, query_defaults = split_config(config)
+        if layout not in ("auto", "spatial"):
+            raise ValueError(f"layout must be 'auto' or 'spatial', "
+                             f"got {layout!r}")
+        if build_cfg.io_devices > 1:
+            raise _not_ported("io_devices > 1 (striped stores)", "striping")
+        workdir = workdir or tempfile.mkdtemp(prefix="diskjoin_index_")
+        os.makedirs(workdir, exist_ok=True)
+
+        # disk-layout planning (only when coalescing can use it): the
+        # write scan needs the extent order *before* it lays them out
+        plan_cache: dict = {}
+        layout_fn = None
+        if build_cfg.io_coalesce:
+            if layout == "auto" and query_defaults is not None:
+                flat = merge_config(build_cfg, query_defaults)
+
+                def layout_fn(meta):
+                    graph = build_bucket_graph(meta, flat, device=dev)
+                    cap = resolve_bucket_capacity(flat, meta.sizes)
+                    cache_buckets = resolve_cache_buckets(flat, cap,
+                                                          store.dim)
+                    order = ordering.compute_node_order(graph, meta, flat,
+                                                        cache_buckets)
+                    plan_cache.update(graph=graph, order=order,
+                                      cache_buckets=cache_buckets,
+                                      kind="schedule")
+                    return order
+            else:
+                def layout_fn(meta):
+                    order = ordering.spatial_order(meta.centers)
+                    plan_cache.update(order=order, kind="spatial")
+                    return order
+
+        t0 = time.perf_counter()
+        bstore, meta, bt = bucketize(store, os.path.join(workdir, "buckets"),
+                                     config, device=dev,
+                                     layout_order_fn=layout_fn)
+        build_seconds = time.perf_counter() - t0
+
+        index = cls(workdir, bstore, meta, build_cfg, query_defaults,
+                    device=dev, build_timings=bt,
+                    build_seconds=build_seconds)
+        if "graph" in plan_cache and query_defaults is not None:
+            # the layout pass already planned the default-config join;
+            # seed the session caches so the first self_join reuses it
+            flat = merge_config(build_cfg, query_defaults)
+            gkey = index._graph_key(flat)
+            index._graph_cache[gkey] = plan_cache["graph"]
+            index._order_cache[(gkey, flat.order_strategy, flat.reorder,
+                                plan_cache["cache_buckets"])] = \
+                plan_cache["order"]
+        index._write_manifest(plan_cache.get("order"), plan_cache.get("kind"))
+        return index
+
+    @classmethod
+    def open(cls, workdir: str,
+             config: JoinConfig | QueryConfig | None = None, *,
+             warm_start: bool = False, device=None) -> "DiskJoinIndex":
+        """Reattach to an index built earlier in ``workdir`` (by either
+        package) — no dataset rescan.
+
+        ``config`` optionally replaces the session's query-time defaults.
+        Passing a flat ``JoinConfig`` validates its build-time half against
+        the manifest (mismatch raises — the on-disk layout cannot be
+        changed by opening it differently). ``warm_start`` (replaying a
+        residency snapshot) is not ported yet."""
+        dev = resolve_device(device)
+        if warm_start:
+            raise _not_ported("warm_start (residency snapshots)", "serving")
+        path = os.path.join(workdir, MANIFEST_NAME)
+        with open(path) as f:
+            m = json.load(f)
+        if m.get("format") != MANIFEST_FORMAT:
+            raise ValueError(f"{path}: not a {MANIFEST_FORMAT} manifest")
+        if m["striped"]:
+            raise _not_ported("opening a striped index", "striping")
+        build_cfg = BuildConfig(**m["build"])
+        manifest_defaults = (QueryConfig(**m["query_defaults"])
+                             if m.get("query_defaults") else None)
+        query_defaults = manifest_defaults
+        if isinstance(config, JoinConfig):
+            got_build, query_defaults = split_config(config)
+            if got_build != build_cfg:
+                diff = [f.name for f in dataclasses.fields(BuildConfig)
+                        if getattr(got_build, f.name)
+                        != getattr(build_cfg, f.name)]
+                raise ValueError(
+                    f"build-time parameters {diff} differ from the on-disk "
+                    f"index at {workdir}; rebuild with DiskJoinIndex.build "
+                    f"to change them")
+        elif isinstance(config, QueryConfig):
+            query_defaults = config
+        elif config is not None:
+            raise TypeError("config must be JoinConfig, QueryConfig or None")
+        store = BucketedVectorStore(os.path.join(workdir, m["store"]))
+        if query_defaults is not None:
+            store.read_latency_s = query_defaults.emulate_read_latency_s
+        meta = BucketMeta(centers=store.centers, radii=store.radii,
+                          sizes=np.asarray(store.bucket_sizes))
+        index = cls(workdir, store, meta, build_cfg, query_defaults,
+                    device=dev, build_timings=m.get("build_timings"),
+                    build_seconds=m.get("build_seconds", 0.0))
+        if (m.get("layout_kind") == "schedule"
+                and m.get("layout_order") is not None
+                and manifest_defaults is not None):
+            # the persisted layout IS the schedule order planned for the
+            # MANIFEST's defaults — seed the order cache under that key
+            flat = merge_config(build_cfg, manifest_defaults)
+            gkey = index._graph_key(flat)
+            cache_buckets = resolve_cache_buckets(flat,
+                                                  index.bucket_capacity,
+                                                  store.dim)
+            index._order_cache[(gkey, flat.order_strategy, flat.reorder,
+                                cache_buckets)] = \
+                np.asarray(m["layout_order"], dtype=np.int64)
+        return index
+
+    def _write_manifest(self, layout_order, layout_kind) -> None:
+        manifest = {
+            "format": MANIFEST_FORMAT,
+            "store": "buckets",
+            "striped": False,
+            "dim": int(self.store.dim),
+            "num_buckets": int(self.meta.num_buckets),
+            "num_vectors": int(self.meta.sizes.sum()),
+            "build": dataclasses.asdict(self.build_config),
+            "query_defaults": (dataclasses.asdict(self.query_defaults)
+                               if self.query_defaults is not None else None),
+            "layout_kind": layout_kind,
+            "layout_order": (np.asarray(layout_order).tolist()
+                             if layout_order is not None else None),
+            "build_seconds": self.build_seconds,
+            "build_timings": self.build_timings,
+            # the planner's sketch is not built by the port; the JAX
+            # package rebuilds one lazily when its planner first needs it
+            "sketch": None,
+        }
+        atomic_write_json(os.path.join(self.workdir, MANIFEST_NAME),
+                          manifest)
+
+    # -- shape ---------------------------------------------------------------
+    @property
+    def num_vectors(self) -> int:
+        return int(self.meta.sizes.sum())
+
+    @property
+    def num_buckets(self) -> int:
+        return self.meta.num_buckets
+
+    @property
+    def dim(self) -> int:
+        return self.store.dim
+
+    def _tracer(self):
+        return self.tracer if self.tracer is not None else get_tracer()
+
+    # -- config resolution ---------------------------------------------------
+    def _resolve(self, overrides: dict) -> JoinConfig:
+        """Merge per-call query-time overrides over the session defaults.
+        Build-time keys are rejected outright: the on-disk layout cannot
+        be changed by a query, only by a rebuild."""
+        bad = sorted(set(overrides) & BUILD_TIME_FIELDS)
+        if bad:
+            raise ValueError(
+                f"build-time parameter(s) {bad} are fixed by the on-disk "
+                f"index; rebuild with DiskJoinIndex.build to change them")
+        unknown = sorted(set(overrides) - QUERY_TIME_FIELDS)
+        if unknown:
+            raise TypeError(f"unknown query-time parameter(s) {unknown}")
+        if self.query_defaults is None:
+            if "epsilon" not in overrides:
+                raise ValueError(
+                    "epsilon is required: the index was built from a bare "
+                    "BuildConfig and has no query-time defaults")
+            query = QueryConfig(**overrides)
+        else:
+            query = dataclasses.replace(self.query_defaults, **overrides)
+        cfg = merge_config(self.build_config, query)
+        if cfg.io_mode == "prefetch":
+            raise _not_ported("io_mode='prefetch'", "prefetch I/O")
+        if cfg.plan_mode == "on":
+            raise _not_ported("plan_mode='on'", "the planner")
+        self.store.read_latency_s = cfg.emulate_read_latency_s
+        return cfg
+
+    # -- per-ε planning caches ------------------------------------------------
+    @staticmethod
+    def _graph_key(cfg: JoinConfig):
+        return (float(cfg.epsilon), float(cfg.recall_target),
+                int(cfg.max_candidates), bool(cfg.prune))
+
+    def _graph_for(self, cfg: JoinConfig):
+        """Bucket graph for these query params → (graph, seconds, key).
+        Repeat calls at the same (ε, λ, L, prune) reuse the cached graph."""
+        key = self._graph_key(cfg)
+        graph = self._graph_cache.get(key)
+        if graph is not None:
+            return graph, 0.0, key
+        t0 = time.perf_counter()
+        graph = build_bucket_graph(self.meta, cfg, device=self.device)
+        graph_s = time.perf_counter() - t0
+        self._graph_cache[key] = graph
+        return graph, graph_s, key
+
+    def _order_for(self, graph, cfg: JoinConfig, cache_buckets: int, gkey):
+        key = (gkey, cfg.order_strategy, cfg.reorder, cache_buckets)
+        order = self._order_cache.get(key)
+        if order is None:
+            order = ordering.compute_node_order(graph, self.meta, cfg,
+                                                cache_buckets)
+            self._order_cache[key] = order
+        return order
+
+    # -- session buffer pool --------------------------------------------------
+    def _ensure_pool(self, cfg: JoinConfig) -> BufferPool:
+        """The session's one BufferPool, created on first query: sized for
+        a batch join at these query params plus warm-cache headroom."""
+        with self._pool_lock:
+            if self._pool is None:
+                cap_buckets = min(
+                    resolve_cache_buckets(cfg, self.bucket_capacity,
+                                          self.store.dim),
+                    self.meta.num_buckets or 1)
+                slabs = cfg.io_pool_slabs
+                if slabs is None:
+                    slabs = cap_buckets + cfg.io_lookahead
+                slabs = max(slabs, cap_buckets + 1) + _WARM_RESERVE
+                self._pool = BufferPool(slabs, self.bucket_capacity,
+                                        self.store.dim)
+            return self._pool
+
+    # -- batch joins ----------------------------------------------------------
+    def self_join(self, *, attribute_mask: np.ndarray | None = None,
+                  **overrides) -> JoinResult:
+        """ε-self-join over the built index. Query-time parameters
+        (``epsilon=…``, ``compute_mode=…``, ``memory_budget_bytes=…``, …)
+        are per-call overrides; bucketization is never repeated."""
+        cfg = self._resolve(overrides)
+        graph, graph_s, gkey = self._graph_for(cfg)
+        executor = JoinExecutor(self.store, self.meta, cfg,
+                                device=self.device,
+                                attribute_mask=attribute_mask,
+                                shared_stats=self.stats,
+                                tracer=self._tracer())
+        node_order = self._order_for(graph, cfg, executor.cache_buckets,
+                                     gkey)
+        with self._warm_lock:
+            # the warm query slabs are dropped while a batch join runs
+            self._joins_active += 1
+            self._drop_warm_locked()
+        try:
+            result = executor.run(graph, node_order=node_order)
+        finally:
+            with self._warm_lock:
+                self._joins_active -= 1
+        result.timings = finalize_timings(result.timings, graph_s)
+        return result
+
+    def cross_join(self, other: "DiskJoinIndex", **overrides) -> JoinResult:
+        raise _not_ported("cross_join", "cross-join/bipartite")
+
+    def attach_live(self, **kw):
+        raise _not_ported("attach_live (live observability)", "serving")
+
+    def enable_residency_snapshots(self, interval_s: float = 30.0) -> None:
+        raise _not_ported("residency snapshots", "serving")
+
+    # -- online point queries -------------------------------------------------
+    def _validate_queries(self, Q: np.ndarray) -> np.ndarray:
+        """Contiguous (Q, dim) float32, rejecting wrong widths and
+        non-finite values up front."""
+        Q = np.ascontiguousarray(np.atleast_2d(np.asarray(Q, np.float32)))
+        if Q.ndim != 2 or Q.shape[1] != self.dim:
+            raise ValueError(
+                f"query shape {Q.shape} incompatible with index "
+                f"({self.dim}-dimensional vectors expected)")
+        if not np.isfinite(Q).all():
+            raise ValueError("query contains NaN/Inf values")
+        return Q
+
+    def query(self, q: np.ndarray, epsilon: float | None = None,
+              **overrides) -> tuple[np.ndarray, np.ndarray]:
+        """ε-range lookup for one query vector → (ids, distances)."""
+        out = self.query_batch(np.asarray(q, np.float32)[None, :],
+                               epsilon, **overrides)
+        return out[0]
+
+    def plan_probes(self, Q: np.ndarray, epsilon: float | None = None,
+                    **overrides) -> list[np.ndarray]:
+        """Plan phase of ``query_batch``: per-query candidate-bucket ids
+        (center index + point triangle inequality + Eq. 3 pruning) — no
+        disk reads."""
+        if epsilon is not None:
+            overrides["epsilon"] = epsilon
+        cfg = self._resolve(overrides)
+        Q = self._validate_queries(Q)
+        with self._tracer().span("query.plan", queries=Q.shape[0]):
+            return self._candidate_buckets(Q, cfg)
+
+    def execute_probes(self, Q: np.ndarray, per_q: list[np.ndarray],
+                       epsilon: float | None = None, cancel=None,
+                       **overrides
+                       ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Execute phase of ``query_batch``: each *distinct* bucket in the
+        union of ``per_q`` is read once (through the session pool and warm
+        cache) and fanned out to every member query's verify. Returns one
+        (ids, distances) pair per query, unsorted.
+
+        ``cancel(qi) -> bool``: optional mid-execution cancellation probe
+        — a cancelled query's verify fan-out is skipped from then on, and
+        a bucket whose probing queries are ALL cancelled is not read
+        (``midwave_skipped_reads``)."""
+        if epsilon is not None:
+            overrides["epsilon"] = epsilon
+        cfg = self._resolve(overrides)
+        Q = self._validate_queries(Q)
+        if len(per_q) != Q.shape[0]:
+            raise ValueError(f"probe plan covers {len(per_q)} queries, "
+                             f"got {Q.shape[0]} query vectors")
+        return self._execute_probes(Q, per_q, cfg, cancel=cancel)
+
+    def query_batch(self, Q: np.ndarray, epsilon: float | None = None,
+                    **overrides) -> list[tuple[np.ndarray, np.ndarray]]:
+        """ε-range lookups for a batch of query vectors → one (ids,
+        distances) pair per query, unsorted, exact distances. Both compute
+        modes threshold float32 d² against float32 ε², so they agree on
+        membership up to the device kernel's float32 accumulation on
+        pairs within a few ulps of ε."""
+        if epsilon is not None:
+            overrides["epsilon"] = epsilon
+        cfg = self._resolve(overrides)
+        Q = self._validate_queries(Q)
+        per_q = self._candidate_buckets(Q, cfg)
+        return self._execute_probes(Q, per_q, cfg)
+
+    def _execute_probes(self, Q: np.ndarray, per_q: list[np.ndarray],
+                        cfg: JoinConfig, cancel=None
+                        ) -> list[tuple[np.ndarray, np.ndarray]]:
+        with self._tracer().span(
+                "query.execute", queries=Q.shape[0],
+                buckets=len({int(b) for ids in per_q for b in ids})):
+            return self._execute_probes_inner(Q, per_q, cfg, cancel=cancel)
+
+    def _execute_probes_inner(self, Q: np.ndarray, per_q: list[np.ndarray],
+                              cfg: JoinConfig, cancel=None
+                              ) -> list[tuple[np.ndarray, np.ndarray]]:
+        eps = float(cfg.epsilon)
+        # bucket -> probing query rows; each distinct bucket is read once
+        probe: dict[int, list[int]] = {}
+        for qi, ids in enumerate(per_q):
+            for b in ids:
+                probe.setdefault(int(b), []).append(qi)
+
+        # mid-execution cancellation: a query found cancelled stays
+        # cancelled (deadlines only ever recede into the past)
+        dead: set[int] = set()
+
+        def live_rows(b: int) -> list[int]:
+            qis = probe[b]
+            if cancel is None:
+                return qis
+            out = []
+            for qi in qis:
+                if qi in dead:
+                    continue
+                if cancel(qi):
+                    dead.add(qi)
+                    continue
+                out.append(qi)
+            return out
+
+        acc_ids: list[list[np.ndarray]] = [[] for _ in range(Q.shape[0])]
+        acc_d: list[list[np.ndarray]] = [[] for _ in range(Q.shape[0])]
+        # both query verify paths round d² to float32 and compare against
+        # ε² rounded as the device path rounds it (the f64 product cast
+        # ONCE to f32). The host accumulates the a² − 2ab + b² expansion
+        # in f64 first: in f32 it cancels catastrophically for near-zero
+        # distances, and the host path is the accuracy reference.
+        eps2 = np.float32(float(eps) * float(eps))
+
+        def verify(b: int, vecs: np.ndarray, ids_: np.ndarray,
+                   n: int) -> None:
+            qidx = live_rows(b)
+            if not qidx:
+                return
+            live, lids = vecs[:n], ids_[:n]
+            qs = Q[qidx].astype(np.float64)
+            lv = live.astype(np.float64)
+            d2 = ((qs * qs).sum(1)[:, None] - 2.0 * (qs @ lv.T)
+                  + (lv * lv).sum(1)[None, :])
+            np.maximum(d2, 0.0, out=d2)
+            d2 = d2.astype(np.float32)
+            mask = d2 <= eps2
+            for row, qi in enumerate(qidx):
+                m = mask[row]
+                if m.any():
+                    acc_ids[qi].append(lids[m].astype(np.int64))
+                    acc_d[qi].append(np.sqrt(d2[row][m])
+                                     .astype(np.float32))
+
+        if cfg.compute_mode == "device":
+            verify = self._make_device_verify(Q, probe, eps, acc_ids, acc_d,
+                                              live_rows=live_rows)
+        skip = None
+        if cancel is not None:
+            def skip(b: int) -> bool:
+                return not live_rows(b)
+        self._read_and_verify(self._sorted_by_layout(list(probe)), cfg,
+                              verify, skip=skip)
+        self.stats.add("queries", Q.shape[0])
+
+        out = []
+        for qi in range(Q.shape[0]):
+            if acc_ids[qi]:
+                out.append((np.concatenate(acc_ids[qi]),
+                            np.concatenate(acc_d[qi])))
+            else:
+                out.append((np.zeros(0, np.int64), np.zeros(0, np.float32)))
+        return out
+
+    def _make_device_verify(self, Q: np.ndarray, probe: dict, eps: float,
+                            acc_ids: list, acc_d: list, live_rows=None):
+        """Device verify for a probe wave (``compute_mode="device"``): the
+        wave's query block crosses H2D ONCE, each probed bucket's padded
+        slab once, and the verify kernel's E = 1 launch plus the
+        compaction hand back (query row, bucket row, distance) triples —
+        no per-bucket host distance matrix."""
+        cap = self.bucket_capacity
+        dev = self.device
+        q_dev = to_device(Q, dev)                       # staged ONCE
+        self.stats.add("h2d_transfers", 1)
+        self.stats.add("h2d_bytes", int(Q.nbytes))
+        state = {"first": True, "k_cap": 256}
+
+        def verify(b: int, vecs: np.ndarray, ids_: np.ndarray,
+                   n: int) -> None:
+            rows_alive = (probe[b] if live_rows is None
+                          else live_rows(b))
+            if not rows_alive:
+                return
+            if state["first"]:
+                state["first"] = False
+            else:
+                # every verify after the first reuses the staged block a
+                # per-bucket staging baseline would re-transfer
+                self.stats.add("device_slab_hits", 1)
+                self.stats.add("h2d_transfers_saved", 1)
+            slab = vecs
+            if slab.shape[0] != cap:  # fallback reads come unpadded
+                slab = np.concatenate(
+                    [slab, np.full((cap - slab.shape[0], slab.shape[1]),
+                                   PAD_COORD, np.float32)])
+            slab_dev = to_device(np.asarray(slab, np.float32), dev)
+            self.stats.add("h2d_transfers", 1)
+            self.stats.add("h2d_bytes", int(slab.nbytes))
+            qidx = np.asarray(rows_alive, np.int64)
+            nq = qidx.size
+            idx = np.zeros(next_pow2(nq), np.int64)
+            idx[:nq] = qidx
+            idx_dev = to_device(idx, dev)
+            while True:
+                counts, r, c, d = query_verify_compact(
+                    q_dev, idx_dev, nq, slab_dev, eps, state["k_cap"])
+                k = int(counts.cpu()[0])
+                if k <= state["k_cap"]:
+                    break
+                state["k_cap"] = next_pow2(k)
+            if k == 0:
+                return
+            qrows = r[0, :k].cpu().numpy()
+            cols = c[0, :k].cpu().numpy()
+            dists = d[0, :k].cpu().numpy()
+            lids = ids_[:n]
+            for row in np.unique(qrows):
+                sel = qrows == row
+                qi = int(qidx[row])
+                acc_ids[qi].append(lids[cols[sel]].astype(np.int64))
+                acc_d[qi].append(dists[sel].astype(np.float32))
+
+        return verify
+
+    def _sorted_by_layout(self, buckets: list[int]) -> list[int]:
+        """Order an ad-hoc bucket set by disk placement, so a wave reads
+        disk-adjacent buckets adjacently."""
+        if len(buckets) < 2 or not hasattr(self.store, "layout_keys"):
+            return buckets
+        keys = self.store.layout_keys(buckets)
+        return [buckets[i] for i in np.argsort(keys, kind="stable")]
+
+    def _candidate_buckets(self, Q: np.ndarray,
+                           cfg: JoinConfig) -> list[np.ndarray]:
+        """Per-query candidate bucket ids: center search, point triangle
+        inequality (‖q − c_b‖ − r_b ≤ ε), then Eq. 3 pruning with the
+        query ball radius ε."""
+        with self._center_lock:
+            if self._center_index is None:
+                self._center_index = make_center_index(self.meta.centers,
+                                                       device=self.device)
+        eps = float(cfg.epsilon)
+        L = min(cfg.max_candidates, self.meta.num_buckets)
+        d2, cand = self._center_index.search(Q, L)
+        dists = np.sqrt(np.maximum(d2, 0.0))
+        out = []
+        for qi in range(Q.shape[0]):
+            ids, dd = cand[qi], dists[qi]
+            ok = np.isfinite(dd)
+            ids, dd = ids[ok], dd[ok]
+            near = dd - self.meta.radii[ids] <= eps
+            ids, dd = ids[near], dd[near]
+            if cfg.prune and ids.size:
+                keep = prune_candidates(dd, eps, self.dim,
+                                        cfg.recall_target,
+                                        cand_radii=self.meta.radii[ids])
+                ids = ids[keep]
+            out.append(ids.astype(np.int64))
+        return out
+
+    def _read_and_verify(self, buckets: list[int], cfg: JoinConfig,
+                         verify, skip=None) -> None:
+        """Serve ``verify(b, vecs, ids, rows)`` for every bucket, routing
+        reads through the session pool: warm hits pin already-resident
+        slabs; misses read into a free slab (or, when the pool is fully
+        contended, into a private buffer — counted — instead of
+        blocking)."""
+        pool = self._ensure_pool(cfg)
+        warm_hits = 0
+        misses: list[int] = []
+        for b in buckets:
+            if skip is not None and skip(b):
+                continue
+            with self._warm_lock:
+                ent = self._warm.get(b)
+                if ent is not None:
+                    slot, rows = ent
+                    pool.pin(slot)
+                    self._warm.move_to_end(b)
+                else:
+                    slot = None
+            if slot is None:
+                misses.append(b)
+            else:
+                try:
+                    verify(b, pool.vecs(slot), pool.ids(slot), rows)
+                finally:
+                    pool.unpin(slot)
+                warm_hits += 1
+        if warm_hits:
+            self.stats.add("query_warm_hits", warm_hits)
+        tr = self._tracer()
+        for b in misses:
+            if skip is not None and skip(b):
+                # every prober's deadline passed since the wave started
+                self.stats.add("midwave_skipped_reads", 1)
+                continue
+            self._make_room(pool)
+            slot = pool.try_acquire()
+            if slot is None:
+                size = int(self.meta.sizes[b])
+                vecs = np.empty((size, self.dim), np.float32)
+                ids = np.empty(size, np.int64)
+                t0 = time.perf_counter()
+                n = read_with_retry(
+                    lambda: self.store.read_bucket_into(
+                        b, vecs, ids, pad_value=PAD_COORD),
+                    retries=cfg.io_retries,
+                    backoff_s=cfg.io_retry_backoff_s, stats=self.stats)
+                if tr.enabled:
+                    tr.complete("io.read", t0, time.perf_counter() - t0,
+                                buckets=1, src="query")
+                self.stats.add("query_fallback_reads", 1)
+                verify(b, vecs, ids, n)
+                continue
+            t0 = time.perf_counter()
+            n = read_with_retry(
+                lambda: self.store.read_bucket_into(
+                    b, pool.vecs(slot), pool.ids(slot),
+                    pad_value=PAD_COORD),
+                retries=cfg.io_retries,
+                backoff_s=cfg.io_retry_backoff_s, stats=self.stats)
+            if tr.enabled:
+                tr.complete("io.read", t0, time.perf_counter() - t0,
+                            buckets=1, src="query")
+            self.stats.add("query_reads", 1)
+            try:
+                verify(b, pool.vecs(slot), pool.ids(slot), n)
+            finally:
+                self._retain_or_release(b, slot, n, pool)
+
+    # -- warm query cache -----------------------------------------------------
+    def _retain_or_release(self, b: int, slot: int, rows: int,
+                           pool: BufferPool) -> None:
+        """Keep a freshly-read slab warm for later queries when no batch
+        join runs and headroom remains; else release it."""
+        with self._warm_lock:
+            if (self._joins_active == 0 and b not in self._warm
+                    and len(self._warm) < pool.num_slabs - _WARM_RESERVE):
+                self._warm[b] = (slot, rows)
+                return
+        pool.unpin(slot)
+
+    def _make_room(self, pool: BufferPool) -> None:
+        """Evict warm LRU entries until at least one pool slab is free."""
+        with self._warm_lock:
+            while self._warm and pool.in_use >= pool.num_slabs - 1:
+                _, (slot, _) = self._warm.popitem(last=False)
+                pool.unpin(slot)
+
+    def _drop_warm_locked(self) -> None:
+        while self._warm:
+            _, (slot, _) = self._warm.popitem(last=False)
+            self._pool.unpin(slot)
+
+    def drop_warm_cache(self) -> None:
+        """Release every warm query slab (benchmark cold-start helper)."""
+        with self._warm_lock:
+            self._drop_warm_locked()
+
+    def warm_buckets(self) -> list[int]:
+        with self._warm_lock:
+            return list(self._warm)
+
+    # -- telemetry / lifecycle ------------------------------------------------
+    def pipeline_snapshot(self) -> dict:
+        """The session's single PipelineStats snapshot: batch-join loads
+        and online query reads appear in one surface."""
+        return self.stats.snapshot()
+
+    def io_snapshot(self) -> dict:
+        return self.store.stats.snapshot()
+
+    def merge_build_timings(self, timings: dict) -> dict:
+        """Fold this index's build cost into a result's timings (the
+        one-shot ``similarity_self_join`` keeps the "bucketing included"
+        schema)."""
+        sub = dict(self.build_timings)
+        layout_s = sub.pop("layout_plan", 0.0)
+        t = dict(timings)
+        t["bucketing"] = t.get("bucketing", 0.0) + self.build_seconds \
+            - layout_s
+        for k, v in sub.items():
+            t[f"bucketing/{k}"] = t.get(f"bucketing/{k}", 0.0) + v
+        if layout_s:
+            t["orchestration"] = t.get("orchestration", 0.0) + layout_s
+            t["orchestration/layout_plan"] = \
+                t.get("orchestration/layout_plan", 0.0) + layout_s
+        return t
+
+    def close(self) -> None:
+        """Release the session: warm slabs, pool, store handles. The
+        on-disk index remains and can be re-``open``ed."""
+        if self._closed:
+            return
+        self._closed = True
+        with self._warm_lock:
+            if self._pool is not None:
+                self._drop_warm_locked()
+        if self._pool is not None:
+            self._pool.close()
+        self.store.close()
+
+    def __enter__(self) -> "DiskJoinIndex":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
