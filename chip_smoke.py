@@ -21,15 +21,27 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    path gave it, then timed (CUDA events over warm launches) beside its
    plain version, a library call where one exists, and its bound.
 4. Host/device byte parity of ``self_join`` at 100,000 × 128.
+5. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
+   weights from a seeded generator on the card): ``ServeEngine(slots=4,
+   max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
+   32 new tokens each, no EOS: two waves), then ``prefill`` runs on
+   (4, 2048) tokens. The flash-attention launch count, zeroed just before,
+   must be 28 × decode steps + 28 per prefill. The kernel is held against
+   its plain version at the prefill and decode shapes in bf16 and float32,
+   and timed beside its bound and ``scaled_dot_product_attention``. In
+   float32, decode must reproduce the teacher-forced forward over a
+   64-token prompt, B = 4 (tests/test_models.py's tolerance).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
 before printing any result. The sizes are fixed (``N_MAIN`` …); the only
-option, ``--profile``, adds a traced repeat of the device-mode join.
+option, ``--profile``, adds a traced repeat of the device-mode join and
+traced LM decode steps.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -44,15 +56,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
 PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12   # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12       # HBM3
 D2_RTOL, D2_ATOL = 1e-4, 1e-3   # tests/test_kernels.py's d² tolerance
 MASK_BAND = 1e-2                # mask may differ only this close to ε²
@@ -61,6 +77,18 @@ N_MAIN = 1_000_000      # SIFT1M's 1,000,000 x 128
 N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
+JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
+                "bucket_assign")
+LM_ARCH = "qwen3-0.6b"
+LM_SLOTS, LM_MAX_SEQ = 4, 512
+LM_PROMPT_LENS = (64, 128) * 4     # interleaved: the engine forms 2 waves
+LM_NEW_TOKENS = 32
+LM_PREFILL_SHAPE = (4, 2048)
+LM_TF_SHAPE = (4, 64)              # decode vs teacher forcing, float32
+LM_DECODE_POS = 300                # decode check: cache slots >= 301 empty
+# rtol = atol. bf16: about twice the largest error measured at the path's
+# shapes (1.95e-3, prefill), one bf16 ulp of values near 1
+ATTN_TOL = {torch.bfloat16: 4e-3, torch.float32: 2e-4}
 
 
 def log(msg: str) -> None:
@@ -98,8 +126,9 @@ def phase_device() -> None:
              if _build.build_seconds is None
              else f"{_build.build_seconds:.2f} s")
     log(f"[build] nvcc build {built}, load {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+    for line in _build.build_log.splitlines():  # per kernel: name, then use
+        if ("entry function" in line or "registers" in line
+                or "spill" in line):
             log(f"[build] {line.strip()}")
 
 
@@ -211,7 +240,7 @@ def phase_main_path(workdir: str) -> dict:
     launches = dict(ops.LAUNCHES)
     # -----------------------------------------------------------------------
     log(f"[main] launches {launches}")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[k] > 0 for k in JOIN_KERNELS),
           f"a kernel never launched on the main path: {launches}")
 
     check_join_output(x, eps, res)
@@ -275,8 +304,13 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          flops_bf16: float = 0.0) -> tuple[float, str]:
+    """Least time in ms: float32 ``flops`` at the CUDA cores' peak plus
+    ``flops_bf16`` (bf16 operands) at the tensor cores', or ``nbytes`` at
+    HBM's rate, whichever is larger."""
+    t_ops = flops / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+    t_mem = nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes")
 
@@ -451,11 +485,250 @@ def phase_parity(workdir: str) -> None:
         f"{t_host:.3f} s, device {t_dev:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: LM serving at qwen3-0.6b's full width
+# ---------------------------------------------------------------------------
+def host_ms(fn, reps: int = 3) -> float:
+    """Host clock around ``reps`` calls that end in a synchronise (after one
+    warm call): for work of many launches, such as a whole prefill."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rolling_positions(steps: int, written: int) -> torch.Tensor:
+    """kpos of a decode cache after positions 0..written-1 (−1: empty)."""
+    pos = torch.arange(steps, dtype=torch.int32)
+    return torch.where(pos < written, pos, -1).cuda()
+
+
+def attn_inputs(cfg, b, sq, t, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, sq, cfg.n_heads, cfg.head_dim, device="cuda",
+                    generator=g).to(dtype)
+    k, v = (torch.randn(b, t, cfg.n_kv_heads, cfg.head_dim, device="cuda",
+                        generator=g).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def check_attention(q, k, v, kw) -> float:
+    """Kernel vs plain version on the same inputs; → max abs error."""
+    got = ops.gqa_attention(q, k, v, **kw).float()
+    want = ref.gqa_attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[q.dtype]
+    over = (got - want).abs() - tol * (1.0 + want.abs())
+    check(torch.isfinite(got).all().item(), "flash output not finite")
+    check(over.max().item() <= 0, f"flash {q.dtype} {tuple(q.shape)} x "
+          f"{tuple(k.shape)} outside tolerance by {over.max().item()}")
+    return (got - want).abs().max().item()
+
+
+def attention_row(name, cfg, sq, t, kw, launches) -> dict:
+    """One shape of the path: checked in bf16 (the path's dtype) and
+    float32, timed in bf16 beside the plain version, SDPA and the bound."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(cfg, LM_SLOTS, sq, t, dtype, seed=sq + t)
+        errs[dtype] = check_attention(q, k, v, kw)
+    ms = cuda_ms(lambda: ops.gqa_attention(q, k, v, **kw))
+    plain = cuda_ms(lambda: ref.gqa_attention(q, k, v, **kw), reps=5)
+    # the library call computes the same function: is_causal (top-left
+    # aligned) for S == T from position 0, a boolean key mask for decode
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = ref.gqa_mask(sq, kw.get("kv_positions",
+                                   torch.arange(t, device="cuda")),
+                        causal=True, window=0, q_offset=kw.get("q_offset", 0))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if sq == t and "kv_positions" not in kw:
+        lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                              enable_gqa=True)
+    else:
+        lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                              enable_gqa=True)
+    lib_out = lib_fn().transpose(1, 2).float()
+    lib_err = (lib_out - ops.gqa_attention(q, k, v, **kw).float()).abs()
+    lib = cuda_ms(lib_fn)
+    # Q·Kᵀ has bf16 operands (exact products, float32 sums: the tensor
+    # cores' rate); P·V takes float32 P, as the reference keeps it. Bytes:
+    # Q and O, the K/V rows some query sees, and the positions if given.
+    visible = int(mask.sum().item())        # (query, key) pairs computed
+    keys = int(mask.any(0).sum().item())    # cache rows that must be read
+    matmul = 2.0 * LM_SLOTS * cfg.n_heads * cfg.head_dim * visible
+    pos = kw.get("kv_positions")
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * LM_SLOTS * keys
+                                  * cfg.n_kv_heads * cfg.head_dim)
+              + (0 if pos is None else pos.numel() * pos.element_size()))
+    bms, by = bound(matmul, nbytes, flops_bf16=matmul)
+    log(f"[lm] flash {name} {tuple(q.shape)} x {tuple(k.shape)}: max abs "
+        f"err bf16 {errs[torch.bfloat16]!r}, f32 {errs[torch.float32]!r}; "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+        f"(vs kernel max abs {lib_err.max().item():.3g}), bound "
+        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}")
+    return dict(
+        name=f"flash_attention ({name})", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        launches=launches, max_abs_err=errs[torch.bfloat16],
+        max_abs_err_f32=errs[torch.float32], ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=[LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        dtype="bfloat16", ok=True)
+
+
+def check_decode_vs_forward(cfg) -> float:
+    """float32 at full width: decode step by step reproduces the
+    teacher-forced forward's logits (tests/test_models.py:107-109)."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    bundle = build_model(cfg32)
+    params = bundle.init(1)
+    b, s = LM_TF_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tok = torch.randint(0, cfg.vocab, (b, s), device="cuda", generator=g)
+    with torch.inference_mode():
+        hidden, _ = transformer.forward(params, tok)
+        tf = transformer.lm_logits(params, hidden)
+        caches = bundle.init_cache(b, s)
+        steps = torch.stack([bundle.decode(params, tok[:, i:i + 1],
+                                           caches)[0] for i in range(s)], 1)
+    over = (steps - tf).abs() - (2e-3 + 2e-2 * tf.abs())
+    check(torch.isfinite(steps).all().item(), "decode logits not finite")
+    check(over.max().item() <= 0, f"float32 decode vs forward outside "
+          f"rtol 2e-2 / atol 2e-3 by {over.max().item()}")
+    return (steps - tf).abs().max().item()
+
+
+def phase_lm(profile: bool) -> list[dict]:
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    engine = ServeEngine(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                         params=params)
+    rng = np.random.default_rng(11)
+    for n in LM_PROMPT_LENS:
+        engine.submit(rng.integers(0, cfg.vocab, n),
+                      max_new_tokens=LM_NEW_TOKENS)
+    finite = []
+    inner = engine._decode
+
+    def decode(p, t, c):  # every step's logits checked, read once at the end
+        logits, c = inner(p, t, c)
+        finite.append(torch.isfinite(logits).all())
+        return logits, c
+    engine._decode = decode
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, LM_PREFILL_SHAPE, device="cuda",
+                           generator=g)
+
+    # --- the main path: counts zeroed just before, read just after -------
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    n_decode = ops.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pre = bundle.prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t_prefill_first = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    # -----------------------------------------------------------------------
+    steps = engine.stats["steps"]
+    log(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {n_params} params in {cfg.param_dtype}, made on the "
+        f"card in {t_init:.2f} s")
+    log(f"[lm] launches {launches}; engine stats {engine.stats}")
+    check(launches["flash_attention"] == cfg.n_layers * (steps + 1) > 0,
+          f"flash launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} x ({steps} steps + 1 prefill)")
+    check(sorted(results) == list(range(1, len(LM_PROMPT_LENS) + 1)),
+          f"answered {sorted(results)}")
+    check(all(len(r) == LM_NEW_TOKENS for r in results.values()),
+          "a request got the wrong number of tokens")
+    check(engine.stats["waves"] == 2, f"waves {engine.stats['waves']}")
+    check(torch.stack(finite).all().item(), "non-finite decode logits")
+    check(pre.shape == (LM_PREFILL_SHAPE[0], cfg.vocab)
+          and torch.isfinite(pre).all().item(), "prefill logits")
+    generated = sum(len(r) for r in results.values())
+    log(f"[lm] served {len(results)} requests, {generated} tokens, {steps} "
+        f"decode steps in {t_serve:.3f} s: {t_serve * 1e3 / steps:.3f} "
+        f"ms/step, {generated / t_serve:.1f} generated tokens/s "
+        f"({LM_SLOTS * steps / t_serve:.1f} slot-tokens/s)")
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: bundle.prefill(params,
+                                                    {"tokens": prompt}))
+        caches = bundle.init_cache(LM_SLOTS, LM_MAX_SEQ)
+        tok = prompt[:, :1]
+        step_ms = host_ms(lambda: bundle.decode(params, tok, caches),
+                          reps=20)
+    log(f"[lm] prefill {LM_PREFILL_SHAPE}: first {t_prefill_first * 1e3:.1f}"
+        f" ms, warm {prefill_ms:.1f} ms; warm decode step (4 slots) "
+        f"{step_ms:.3f} ms")
+    if profile:
+        profile_lm_decode(bundle, params, tok)
+    del engine, caches, pre
+
+    rows = []
+    s, t = LM_PREFILL_SHAPE[1], LM_PREFILL_SHAPE[1]
+    rows.append(attention_row("prefill", cfg, s, t, dict(causal=True),
+                              launches["flash_attention"] - n_decode))
+    kw = dict(causal=True, q_offset=LM_DECODE_POS,
+              kv_positions=rolling_positions(LM_MAX_SEQ, LM_DECODE_POS + 1))
+    rows.append(attention_row("decode", cfg, 1, LM_MAX_SEQ, kw, n_decode))
+    del params, bundle
+    torch.cuda.empty_cache()
+    err = check_decode_vs_forward(cfg)
+    log(f"[lm] float32 decode vs forward {LM_TF_SHAPE}: max abs err "
+        f"{err!r} (rtol 2e-2, atol 2e-3)")
+    share = cfg.n_layers * rows[1]["ms"] / step_ms
+    log(f"[lm] flash decode kernels per step {cfg.n_layers} x "
+        f"{rows[1]['ms']:.4f} ms = {share:.3f} of a warm decode step")
+    return rows
+
+
+def profile_lm_decode(bundle, params, tok) -> None:
+    """Eight warm decode steps under torch.profiler: device time by kernel
+    and the device's busy share of the steps' wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caches = bundle.init_cache(LM_SLOTS, LM_MAX_SEQ)
+    bundle.decode(params, tok, caches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            bundle.decode(params, tok, caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e6
+    log(f"[profile-lm] 8 decode steps wall {wall * 1e3:.2f} ms, device "
+        f"kernels {busy * 1e3:.2f} ms (busy share {busy / wall:.3f})")
+    for key, us, n in rows[:10]:
+        log(f"[profile-lm] {us / 1e3:9.3f} ms  {n:5d} x  {key[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one more device-mode self_join with "
-                    "torch.profiler: device busy share and top kernels")
+                    help="also trace one more device-mode self_join and "
+                    "eight LM decode steps with torch.profiler: device busy "
+                    "share and top kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -472,6 +745,11 @@ def main() -> int:
         main_path["shapes"]["index"].close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    del main_path
+    torch.cuda.empty_cache()
+    t_lm = time.perf_counter()
+    kernels += phase_lm(args.profile)
+    log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
     log(f"[done] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

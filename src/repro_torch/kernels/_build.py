@@ -106,5 +106,10 @@ def load() -> ctypes.CDLL:
         lib.bucket_assign_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.bucket_assign_launch.restype = i32
+        lib.flash_attention_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_longlong),
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+            i32, i32, ptr]
+        lib.flash_attention_launch.restype = i32
         _lib = lib
         return lib

@@ -1,9 +1,10 @@
 """Public wrappers around the port's CUDA kernels.
 
 Each wrapper checks its inputs (tensor type, floating dtype, rank, matching
-widths, one device), casts them to contiguous float32 — before anything
-else, since float16 inputs go through the same float32 arithmetic — and
-dispatches by the tensors' device:
+widths, one device) and dispatches by the tensors' device. The distance
+wrappers first cast to contiguous float32, since float16 inputs go through
+the same float32 arithmetic; the attention wrappers hand bf16 and float32
+tensors to the kernel as they are, strides and all. By device:
 
 * a CUDA tensor launches the hand-written kernel on the current stream and
   raises if the launch is refused. There is no fallback;
@@ -13,7 +14,7 @@ dispatches by the tensors' device:
 launches per wrapper (CPU calls never count), so a run can show that its
 path went through the kernels. The kernels mask ragged edges themselves,
 so no wrapper pads. The DiskJoin engines and the build call only this
-layer.
+layer; the LM's attention calls ``gqa_attention``.
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import bucket_assign as _assign_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import pairwise_l2 as _pairwise_kernel
 from repro_torch.kernels import ref
 
 LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
-            "bucket_assign": 0}
+            "bucket_assign": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -130,6 +132,106 @@ def bucket_assign(x, centers):
     out = _assign_kernel.bucket_assign(x, centers)
     LAUNCHES["bucket_assign"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# flash attention (LM substrate)
+# ---------------------------------------------------------------------------
+def _attn_operand(x, name: str) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(x)}")
+    if not x.is_floating_point():
+        raise TypeError(f"{name} must be floating point, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name} must be 4-D, got shape {tuple(x.shape)}")
+    return x
+
+
+def _check_kernel_operands(q, k, v) -> None:
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in \
+            _flash_kernel.DTYPES:
+        raise TypeError(f"the flash kernel takes one dtype of "
+                        f"{_flash_kernel.DTYPES}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    d = q.shape[-1]
+    if d % 16 or d > _flash_kernel.MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not a multiple of 16 up to "
+                         f"{_flash_kernel.MAX_HEAD_DIM}")
+
+
+def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
+                  q_offset: int = 0, kv_positions=None) -> torch.Tensor:
+    """Grouped-head attention in the model's layout: q (B, Sq, H, D),
+    k/v (B, T, Hkv, D) → (B, Sq, H, D) in q's dtype. Query head h reads KV
+    head h // (H / Hkv); ``kv_positions`` (T,) are the keys' absolute
+    positions (−1 = empty slot; default ``arange(T)``) and ``q_offset``
+    the position of q[:, 0]; ``window > 0`` keeps the trailing ``window``
+    keys. The function of the JAX package's ``gqa_scores_chunked``.
+
+    On CUDA, q, k and v share one dtype, float32 or bfloat16, D is a
+    multiple of 16 up to 256, and the kernel reads them through their
+    strides."""
+    q = _attn_operand(q, "q")
+    k = _attn_operand(k, "k")
+    v = _attn_operand(v, "v")
+    b, sq, h, d = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or k.shape[2] == 0 or h % k.shape[2]):
+        raise ValueError(f"q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    t = k.shape[1]
+    if kv_positions is not None and tuple(kv_positions.shape) != (t,):
+        raise ValueError(f"kv_positions must be ({t},), got "
+                         f"{tuple(kv_positions.shape)}")
+    dev = _same_device(q, k, v, *(() if kv_positions is None
+                                  else (kv_positions,)))
+    if dev.type == "cpu":
+        return ref.gqa_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset,
+                                 kv_positions=kv_positions)
+    _check_kernel_operands(q, k, v)
+    if 0 in (b, sq, h, t):
+        return torch.zeros((b, sq, h, d), dtype=q.dtype, device=dev)
+    if kv_positions is not None:
+        kv_positions = kv_positions.to(torch.int32).contiguous()
+    out = _flash_kernel.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        scale=d ** -0.5, kv_positions=kv_positions)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, use_pallas: bool = False):
+    """q: (B, H, S, D); k/v: (B, H, T, D) → (B, H, S, D) in q's dtype.
+    Causal is ``tril(k=T−S)`` (query row i sees keys j ≤ i + T − S), for
+    any S and T: the kernel masks ragged and offset shapes itself, so no
+    shape is sent elsewhere. ``use_pallas`` is kept for the JAX package's
+    signature and chooses nothing: a CUDA tensor launches the kernel (with
+    no copy of the transposed layout), a CPU tensor runs ``ref``."""
+    del use_pallas
+    q = _attn_operand(q, "q")
+    k = _attn_operand(k, "k")
+    v = _attn_operand(v, "v")
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dev = _same_device(q, k, v)
+    if dev.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, scale=scale)
+    _check_kernel_operands(q, k, v)
+    b, h, s, t = *q.shape[:3], k.shape[2]
+    if 0 in (b, h, s, t):
+        return torch.zeros_like(q)
+    out = _flash_kernel.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=0, q_offset=t - s, scale=scale,
+        kv_positions=None)
+    LAUNCHES["flash_attention"] += 1
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

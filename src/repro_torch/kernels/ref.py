@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels, in float32.
+"""Plain PyTorch versions of the port's kernels, computed in float32.
 
 They compute what the CUDA kernels compute and are what a CPU tensor runs
 (``ops`` dispatches by device); ``chip_smoke.py`` holds each kernel against
@@ -33,3 +33,67 @@ def bucket_assign(x: torch.Tensor, centers: torch.Tensor):
     idx = torch.argmin(d2, dim=1)
     mind2 = torch.gather(d2, 1, idx[:, None])[:, 0]
     return mind2, idx.to(torch.int32)
+
+
+NEG_FILL = -1e30  # the reference's finite mask fill (never -inf)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: float | None = None
+              ) -> torch.Tensor:
+    """Attention over (B, H, S, D) × (B, H, T, D) → (B, H, S, D) in q's
+    dtype, computed in float32. Causal is ``tril(k=T−S)``: query row i sees
+    keys j ≤ i + T − S. Counterpart of the JAX package's
+    ``ref.attention``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        s, t = q.shape[2], k.shape[2]
+        mask = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(diagonal=t - s)
+        logits = torch.where(mask, logits, NEG_FILL)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def gqa_mask(sq: int, kv_pos: torch.Tensor, *, causal: bool, window: int,
+             q_offset: int) -> torch.Tensor:
+    """(Sq, T) bool: which keys each query sees. A key at position p is
+    seen iff p ≥ 0, (causal) q_offset + row ≥ p, and (window > 0)
+    p > q_offset + row − window."""
+    q_pos = q_offset + torch.arange(sq, device=kv_pos.device)
+    mask = (kv_pos[None, :] >= 0).expand(sq, -1)
+    if causal:
+        mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+    if window > 0:
+        mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+    return mask
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: int = 0, q_offset: int = 0,
+                  kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped-head attention in the model's layout: q (B, Sq, H, D),
+    k/v (B, T, Hkv, D) → (B, Sq, H, D) in q's dtype, computed in float32.
+    Query head h reads KV head h // (H / Hkv). ``kv_positions`` (T,) gives
+    each key's absolute position (−1 marks an empty cache slot; default
+    ``arange(T)``) and ``q_offset`` the position of q[:, 0]. The mask is
+    ``gqa_mask``'s, filled with −1e30, as the JAX package's
+    ``models.layers.gqa_scores_chunked`` computes it."""
+    b, sq, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kv_pos = (torch.arange(t, device=q.device) if kv_positions is None
+              else kv_positions.to(q.device))
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                     k.to(torch.float32)) * (d ** -0.5)
+    mask = gqa_mask(sq, kv_pos, causal=causal, window=window,
+                    q_offset=q_offset)
+    s = torch.where(mask, s, NEG_FILL)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.to(q.dtype).reshape(b, sq, h, d)

@@ -1,25 +1,33 @@
 """The port on the card: each CUDA kernel against its plain PyTorch version
-at ragged shapes, and the slice's host and device modes through the
-kernels. Every test here needs a CUDA device and skips without one; run
-them on the card with
+at ragged shapes, the join's host and device modes through the kernels,
+and the LM's decode, prefill and serving through the flash kernel. Every
+test here needs a CUDA device and skips without one; run them on the card
+with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports nothing of the JAX package, so it runs where only
 PyTorch is installed."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig, recall  # noqa: E402
 from repro_torch.data import (brute_force_pairs,  # noqa: E402
                               clustered_vectors, epsilon_for_avg_neighbors)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 D2_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py's d² tolerance
+JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
+                "bucket_assign")
 
 
 @pytest.fixture
@@ -92,7 +100,8 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
         d = index.self_join(compute_mode="device")
         qh = index.query_batch(x[:20])
         qd = index.query_batch(x[:20], compute_mode="device")
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in JOIN_KERNELS), ops.LAUNCHES
+    assert ops.LAUNCHES["flash_attention"] == 0
     assert np.array_equal(h.pairs, d.pairs)
     assert np.array_equal(h.distances, d.distances)
     assert recall(d.pairs, brute_force_pairs(x, eps)) >= 0.9
@@ -101,3 +110,179 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
         for v in set(a.tolist()) ^ set(b.tolist()):
             d2 = ((x[v].astype(np.float64) - x[qi]) ** 2).sum()
             assert abs(d2 - eps * eps) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+# kernel vs plain version: float32 as tests/test_kernels.py:60; bf16 outputs
+# may differ by one bf16 rounding of values up to ~4
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+def _rolling(steps: int, written: int) -> torch.Tensor:
+    kpos = torch.full((steps,), -1, dtype=torch.int32)
+    for p in range(written):
+        kpos[p % steps] = p
+    return kpos
+
+
+# (sq, t, causal, window, q_offset, rolling cache positions written)
+FLASH_CASES = {
+    "prefill_ragged": (130, 130, True, 0, 0, None),
+    "full": (70, 200, False, 0, 0, None),
+    "window": (150, 150, True, 32, 0, None),
+    "offset": (33, 103, True, 0, 70, None),
+    "decode_empty_slots": (1, 200, True, 0, 37, 38),
+    "decode_wrapped": (1, 64, True, 0, 100, 101),
+    "decode_wrapped_window": (1, 64, True, 32, 100, 101),
+    "chunk_on_cache": (5, 96, True, 0, 20, 25),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_kernel_matches_plain(cuda, case, g, dtype, d):
+    sq, t, causal, window, q_offset, written = FLASH_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(sq * 1000 + t + g)
+    b, hkv = 2, 3
+    q = torch.randn(b, sq, hkv * g, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(b, t, hkv, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, t, hkv, d, device=cuda, generator=gen).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if written is not None:
+        kw["kv_positions"] = _rolling(t, written).to(cuda)
+    ops.reset_launches()
+    out = ops.gqa_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = ref.gqa_attention(q, k, v, **kw)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [16, 64, 256])
+def test_flash_kernel_head_dims(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn(1, 80, 4, d, device=cuda, generator=gen)
+    k = torch.randn(1, 80, 2, d, device=cuda, generator=gen)
+    out = ops.gqa_attention(q, k, k, causal=True)
+    want = ref.gqa_attention(q, k, k, causal=True)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("sq,t,causal", [(128, 128, True), (64, 200, True),
+                                         (100, 37, False)])
+def test_flash_attention_bhsd_layout(cuda, sq, t, causal):
+    """``ops.flash_attention``'s (B, H, S, D) layout is read through
+    transposed strides; causal S < T is tril(k=T−S)."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + t)
+    q = torch.randn(2, 4, sq, 64, device=cuda, generator=gen)
+    k = torch.randn(2, 4, t, 64, device=cuda, generator=gen)
+    v = torch.randn(2, 4, t, 64, device=cuda, generator=gen)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_kernel_unaligned_strides(cuda):
+    """Strides the kernel cannot read 4 at a time are copied first."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn(2, 40, 4, 34, device=cuda, generator=gen)
+    q = big[..., :32]                   # row stride 34: not a multiple of 4
+    k = big[:, :, :2, 2:]               # base address off by 2 elements
+    out = ops.gqa_attention(q, k, k, causal=True)
+    want = ref.gqa_attention(q, k, k, causal=True)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               **FLASH_TOL[torch.float32])
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 4, 2, 40, device=cuda)  # head dim not a multiple of 16
+    with pytest.raises(ValueError):
+        ops.gqa_attention(q, q, q, causal=True)
+    q = torch.zeros(1, 4, 2, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.gqa_attention(q, q, q, causal=True)
+
+
+def test_full_width_two_layer_decode_and_prefill_launches(cuda):
+    """qwen3-0.6b at full width, cut to 2 layers, bf16: every attention
+    layer of a decode step and of a prefill launches the kernel once."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    caches = bundle.init_cache(4, 64)
+    tok = torch.randint(0, cfg.vocab, (4, 1), device=cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, caches = bundle.decode(params, tok, caches)
+        assert ops.LAUNCHES["flash_attention"] == 2
+        pre = bundle.prefill(params, {"tokens": tok.repeat(1, 40)})
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 4
+    assert logits.shape == pre.shape == (4, cfg.vocab)
+    assert torch.isfinite(logits).all() and torch.isfinite(pre).all()
+    assert caches[0]["pos"] == 1 and caches[0]["kpos"][0].item() == 0
+
+
+def test_full_width_float32_decode_matches_forward(cuda):
+    """Decode step by step reproduces the teacher-forced forward
+    (tests/test_models.py's tolerance), 2 layers at full width, float32."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              param_dtype="float32")
+    bundle = build_model(cfg)
+    params = bundle.init(1)
+    tok = torch.randint(0, cfg.vocab, (2, 24), device=cuda)
+    with torch.inference_mode():
+        hidden, _ = transformer.forward(params, tok)
+        tf = transformer.lm_logits(params, hidden)
+        caches = bundle.init_cache(2, 32)
+        steps = [bundle.decode(params, tok[:, i:i + 1], caches)[0]
+                 for i in range(24)]
+    np.testing.assert_allclose(torch.stack(steps, 1).cpu().numpy(),
+                               tf.cpu().numpy(), rtol=2e-2, atol=2e-3)
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """The smoke config served on the card (the flash kernel) and on the
+    CPU (its plain version) with the same weights gives the same tokens,
+    where the CPU's top-2 logits are well apart."""
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    on_card = build_model(cfg).init(4)
+    on_cpu = build_model(cfg, device="cpu").init(4)
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (6, 11, 6, 11)]
+    results, gaps = {}, []
+    for name, params, device in (("cpu", on_cpu, "cpu"),
+                                 ("cuda", on_card, None)):
+        eng = ServeEngine(cfg, slots=2, max_seq=32, params=params,
+                          device=device)
+        if name == "cpu":
+            inner = eng._decode
+
+            def decode(p, t, c, inner=inner):
+                logits, c = inner(p, t, c)
+                top2 = torch.sort(logits, -1).values[:, -2:]
+                gaps.append((top2[:, 1] - top2[:, 0]).min().item())
+                return logits, c
+            eng._decode = decode
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        ops.reset_launches()
+        results[name] = eng.run()
+        if name == "cuda":
+            assert ops.LAUNCHES["flash_attention"] == \
+                cfg.n_layers * eng.stats["steps"]
+    assert min(gaps) > 1e-3
+    assert results["cuda"] == results["cpu"]

@@ -11,8 +11,8 @@ pytest.importorskip("torch")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
-SUBPACKAGES = ["compute", "core", "data", "ft", "io", "kernels", "obs",
-               "store"]
+SUBPACKAGES = ["compute", "configs", "core", "data", "ft", "io", "kernels",
+               "models", "obs", "serve", "store"]
 # `import jax…`, `from jax…`, `import repro`/`repro.x`, `from repro.x` — but
 # never `repro_torch`
 FORBIDDEN = re.compile(
@@ -30,7 +30,9 @@ def _port_sources():
 def test_import_graph_has_no_jax_and_no_repro():
     modules = ["repro_torch"] + [f"repro_torch.{s}" for s in SUBPACKAGES]
     modules += ["repro_torch.core.index", "repro_torch.core.join",
-                "repro_torch.kernels._build", "repro_torch.device"]
+                "repro_torch.kernels._build", "repro_torch.device",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.models.convert", "repro_torch.serve.engine"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
