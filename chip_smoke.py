@@ -26,11 +26,15 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
    32 new tokens each, no EOS: two waves), then ``prefill`` runs on
    (4, 2048) tokens. The flash-attention launch count, zeroed just before,
-   must be 28 × decode steps + 28 per prefill. The kernel is held against
-   its plain version at the prefill and decode shapes in bf16 and float32,
-   and timed beside its bound and ``scaled_dot_product_attention``. In
-   float32, decode must reproduce the teacher-forced forward over a
-   64-token prompt, B = 4 (tests/test_models.py's tolerance).
+   must be 28 × decode steps + 28 per prefill, every decode call served by
+   the split-KV kernel (``flash_decode.cu``) and every prefill call by the
+   tensor-core kernel (``flash_prefill_sm90.cu``). The kernels are held
+   against their plain version at the prefill and decode shapes in bf16
+   and float32 (float32 prefill runs the CUDA-core kernel,
+   ``flash_attention.cu``), and timed (device time, from CUDA graphs)
+   beside their bound and ``scaled_dot_product_attention``. In float32,
+   decode must reproduce the teacher-forced forward over a 64-token
+   prompt, B = 4 (tests/test_models.py's tolerance).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
@@ -62,6 +66,7 @@ from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
@@ -86,9 +91,15 @@ LM_NEW_TOKENS = 32
 LM_PREFILL_SHAPE = (4, 2048)
 LM_TF_SHAPE = (4, 64)              # decode vs teacher forcing, float32
 LM_DECODE_POS = 300                # decode check: cache slots >= 301 empty
-# rtol = atol. bf16: about twice the largest error measured at the path's
-# shapes (1.95e-3, prefill), one bf16 ulp of values near 1
+# rtol = atol, as |got - want| <= tol * (1 + |want|). bf16: one bf16 ulp
+# (2^-8 relative) of the output, since a kernel whose float32 result
+# differs from the plain version's in the last bits may round to the
+# neighbouring bf16 value
 ATTN_TOL = {torch.bfloat16: 4e-3, torch.float32: 2e-4}
+FLASH_SOURCES = {
+    "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
+    "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
 
 def log(msg: str) -> None:
@@ -128,7 +139,7 @@ def phase_device() -> None:
     log(f"[build] nvcc build {built}, load {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log.splitlines():  # per kernel: name, then use
         if ("entry function" in line or "registers" in line
-                or "spill" in line):
+                or "spill" in line or "Performance" in line):
             log(f"[build] {line.strip()}")
 
 
@@ -500,6 +511,33 @@ def host_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in
+    a CUDA graph, replayed ``replays`` times between CUDA events after a
+    warm replay, so the host's launch cost (tens of µs a call) does not
+    set the reading of a kernel shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
 def rolling_positions(steps: int, written: int) -> torch.Tensor:
     """kpos of a decode cache after positions 0..written-1 (−1: empty)."""
     pos = torch.arange(steps, dtype=torch.int32)
@@ -530,13 +568,18 @@ def check_attention(q, k, v, kw) -> float:
 
 def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     """One shape of the path: checked in bf16 (the path's dtype) and
-    float32, timed in bf16 beside the plain version, SDPA and the bound."""
-    errs = {}
+    float32, each through the route ``launch_plan`` gives it; timed in bf16
+    beside the plain version, SDPA and the bound. ``launches``: the main
+    path's count of the bf16 route."""
+    errs, routes, ms = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attn_inputs(cfg, LM_SLOTS, sq, t, dtype, seed=sq + t)
+        routes[dtype] = flash.launch_plan(
+            LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            dtype).route
         errs[dtype] = check_attention(q, k, v, kw)
-    ms = cuda_ms(lambda: ops.gqa_attention(q, k, v, **kw))
-    plain = cuda_ms(lambda: ref.gqa_attention(q, k, v, **kw), reps=5)
+        ms[dtype] = graph_ms(lambda: ops.gqa_attention(q, k, v, **kw))
+    plain = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw), reps=5)
     # the library call computes the same function: is_causal (top-left
     # aligned) for S == T from position 0, a boolean key mask for decode
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -550,12 +593,13 @@ def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     else:
         lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
                               enable_gqa=True)
-    lib_out = lib_fn().transpose(1, 2).float()
-    lib_err = (lib_out - ops.gqa_attention(q, k, v, **kw).float()).abs()
-    lib = cuda_ms(lib_fn)
-    # Q·Kᵀ has bf16 operands (exact products, float32 sums: the tensor
-    # cores' rate); P·V takes float32 P, as the reference keeps it. Bytes:
-    # Q and O, the K/V rows some query sees, and the positions if given.
+    want = ref.gqa_attention(q, k, v, **kw).float()
+    lib_err = (lib_fn().transpose(1, 2).float() - want).abs().max().item()
+    lib = graph_ms(lib_fn)
+    # every product at the bf16 tensor-core rate (Q·Kᵀ and P·V: 2 x matmul
+    # FLOPs; the prefill kernel's split of P into two bf16 products is its
+    # design's cost, not the work's). Bytes: Q and O, the K/V rows some
+    # query sees, and the positions if given.
     visible = int(mask.sum().item())        # (query, key) pairs computed
     keys = int(mask.any(0).sum().item())    # cache rows that must be read
     matmul = 2.0 * LM_SLOTS * cfg.n_heads * cfg.head_dim * visible
@@ -563,19 +607,25 @@ def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     nbytes = (q.element_size() * (2 * q.numel() + 2 * LM_SLOTS * keys
                                   * cfg.n_kv_heads * cfg.head_dim)
               + (0 if pos is None else pos.numel() * pos.element_size()))
-    bms, by = bound(matmul, nbytes, flops_bf16=matmul)
-    log(f"[lm] flash {name} {tuple(q.shape)} x {tuple(k.shape)}: max abs "
-        f"err bf16 {errs[torch.bfloat16]!r}, f32 {errs[torch.float32]!r}; "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms "
-        f"(vs kernel max abs {lib_err.max().item():.3g}), bound "
-        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}")
+    bms, by = bound(0.0, nbytes, flops_bf16=2.0 * matmul)
+    route = routes[torch.bfloat16]
+    log(f"[lm] flash {name} {tuple(q.shape)} x {tuple(k.shape)}: routes "
+        f"bf16 {route}, f32 {routes[torch.float32]}; max abs err bf16 "
+        f"{errs[torch.bfloat16]!r}, f32 {errs[torch.float32]!r}; kernel "
+        f"{ms[torch.bfloat16]:.4f} ms (f32 {ms[torch.float32]:.4f} ms), "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (sdpa vs plain max abs "
+        f"{lib_err:.3g}), bound {bms:.4f} ms ({by}), share "
+        f"{bms / ms[torch.bfloat16]:.3f}")
     return dict(
         name=f"flash_attention ({name})", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source=FLASH_SOURCES[route],
         replaces="src/repro/kernels/flash_attention.py:77",
         launches=launches, max_abs_err=errs[torch.bfloat16],
-        max_abs_err_f32=errs[torch.float32], ms=ms, plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib,
+        max_abs_err_f32=errs[torch.float32], ms=ms[torch.bfloat16],
+        f32_ms=ms[torch.float32], plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib, library_max_abs_err=lib_err,
+        kernel_route=route, f32_route=routes[torch.float32],
+        f32_source=FLASH_SOURCES[routes[torch.float32]],
         shape=[LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
         dtype="bfloat16", ok=True)
 
@@ -635,7 +685,6 @@ def phase_lm(profile: bool) -> list[dict]:
     results = engine.run()
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
-    n_decode = ops.LAUNCHES["flash_attention"]
     t0 = time.perf_counter()
     with torch.inference_mode():
         pre = bundle.prefill(params, {"tokens": prompt})
@@ -652,6 +701,11 @@ def phase_lm(profile: bool) -> list[dict]:
     check(launches["flash_attention"] == cfg.n_layers * (steps + 1) > 0,
           f"flash launches {launches['flash_attention']} != "
           f"{cfg.n_layers} x ({steps} steps + 1 prefill)")
+    check(launches["flash_decode_split"] == cfg.n_layers * steps
+          and launches["flash_prefill_tc"] == cfg.n_layers
+          and launches["flash_simt"] == 0,
+          f"flash routes: {cfg.n_layers * steps} split-KV decode and "
+          f"{cfg.n_layers} tensor-core prefill calls expected, got {launches}")
     check(sorted(results) == list(range(1, len(LM_PROMPT_LENS) + 1)),
           f"answered {sorted(results)}")
     check(all(len(r) == LM_NEW_TOKENS for r in results.values()),
@@ -682,10 +736,15 @@ def phase_lm(profile: bool) -> list[dict]:
     rows = []
     s, t = LM_PREFILL_SHAPE[1], LM_PREFILL_SHAPE[1]
     rows.append(attention_row("prefill", cfg, s, t, dict(causal=True),
-                              launches["flash_attention"] - n_decode))
+                              launches["flash_prefill_tc"]))
     kw = dict(causal=True, q_offset=LM_DECODE_POS,
               kv_positions=rolling_positions(LM_MAX_SEQ, LM_DECODE_POS + 1))
-    rows.append(attention_row("decode", cfg, 1, LM_MAX_SEQ, kw, n_decode))
+    rows.append(attention_row("decode", cfg, 1, LM_MAX_SEQ, kw,
+                              launches["flash_decode_split"]))
+    check(rows[0]["kernel_route"] == "tc"
+          and rows[1]["kernel_route"] == "split",
+          "the smoke shapes' bf16 routes are not tensor-core prefill and "
+          "split-KV decode")
     del params, bundle
     torch.cuda.empty_cache()
     err = check_decode_vs_forward(cfg)

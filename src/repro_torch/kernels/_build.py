@@ -106,10 +106,19 @@ def load() -> ctypes.CDLL:
         lib.bucket_assign_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.bucket_assign_launch.restype = i32
-        lib.flash_attention_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_longlong),
-            i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        shape = [i32] * 9  # B, Sq, T, H, Hkv, D, causal, window, q_offset
+        lib.flash_simt_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
             i32, i32, ptr]
-        lib.flash_attention_launch.restype = i32
+        lib.flash_simt_launch.restype = i32
+        lib.flash_prefill_sm90_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
+            i32, ptr]
+        lib.flash_prefill_sm90_launch.restype = i32
+        lib.flash_decode_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
+            i32, i32, i32, ptr, ptr, i32, ptr]
+        lib.flash_decode_launch.restype = i32
         _lib = lib
         return lib

@@ -1,15 +1,20 @@
-// Online-softmax attention over grouped heads: every attention layer of the
-// LM, prefill and decode.
+// Online-softmax attention over grouped heads on the CUDA cores: the
+// attention layers the tensor-core and split-KV kernels do not take, that
+// is float32 prefill (the float32 model's) and bf16 prefill at head dims
+// other than 64, 128 and 256. Prefill here means Sq * g > 16 query rows;
+// decode (<= 16 rows) goes to flash_decode.cu in either type, and bf16
+// prefill at D 64/128/256 to flash_prefill_sm90.cu (kernels/
+// flash_attention.py's launch_plan chooses).
 //
-// Replaces: src/repro/kernels/flash_attention.py, flash_attention (body
+// Replaces: src/repro/kernels/flash_attention.py:77, flash_attention (body
 // _flash_kernel), and computes the function of the region the JAX model
-// runs in its place, src/repro/models/layers.py, gqa_scores_chunked.
+// runs in its place, src/repro/models/layers.py:134, gqa_scores_chunked.
 //
-// For q (B, Sq, H, D) and k, v (B, T, Hkv, D), query head h reads KV head
-// h / g (g = H / Hkv). With p_c the position of key c (kv_pos[c], or c
-// when kv_pos is null) and q_pos = q_offset + s, key c is seen by query s
-// iff  p_c >= 0,  (causal) q_pos >= p_c  and  (window > 0)
-// p_c > q_pos - window.  Per (b, s, h):
+// The contract every route keeps. For q (B, Sq, H, D) and k, v (B, T, Hkv,
+// D), query head h reads KV head h / g (g = H / Hkv). With p_c the
+// position of key c (kv_pos[c], or c when kv_pos is null) and q_pos =
+// q_offset + s, key c is seen by query s iff  p_c >= 0,  (causal) q_pos >=
+// p_c  and  (window > 0) p_c > q_pos - window.  Per (b, s, h):
 //   s_c = scale * q.k_c (float32), or -1e30 where key c is not seen;
 //   o = sum_c exp(s_c - m) v_c / max(sum_c exp(s_c - m), 1e-30)
 // with m the running maximum of the online softmax, as _flash_kernel
@@ -17,19 +22,16 @@
 // Rows with no visible key are outside the contract (the reference gives
 // them a uniform average, this kernel whatever its visited tiles give).
 //
-// What bounds it on an H100: at the prefill shape (B 4, S = T 2048, H 16,
+// What bounds it on an H100: at a prefill shape (B 4, S = T 2048, H 16,
 // Hkv 8, D 128, causal) a launch is 4*B*H*D*(S(S+1)/2) = 68.8 GFLOP of
-// float32 CUDA-core work against 101 MB of bf16 Q, K, V and O:
-// operations bound it (67 TFLOP/s: ~1.03 ms; memory ~30 us). At the
-// decode shape (Sq 1, T 512) it is 8.4 MB of K and V against at most
-// 16.8 MFLOP: bytes bound it (~2.5 us), and what this kernel takes there
-// is latency (32 blocks, each walking the 8 key tiles in turn).
+// float32 CUDA-core work against 134 MB of float32 Q, K, V and O:
+// operations bound it (67 TFLOP/s: ~1.03 ms; memory ~40 us).
 //
-// Design: one 256-thread block per (row tile, KV head, batch). A row tile
-// packs the g query heads that share a KV head (row r = s*g + h%g), so a
-// K/V tile is read once per KV head, not once per query head. The block
-// stages its Q tile once, then walks 64-key tiles of K and V in a loop
-// inside the block (the TPU grid's sequential kv axis): S = Q K^T in
+// Design: one 256-thread block per (64-row tile, KV head, batch). A row
+// tile packs the g query heads that share a KV head (row r = s*g + h%g),
+// so a K/V tile is read once per KV head, not once per query head. The
+// block stages its Q tile once, then walks 64-key tiles of K and V in a
+// loop inside the block (the TPU grid's sequential kv axis): S = Q K^T in
 // registers (4 x 4 a thread, columns strided by 16 so the float4 reads of
 // K are free of bank conflicts), the online softmax per row with the 16
 // lanes of a half-warp reducing each row, P through shared memory, then
@@ -40,9 +42,8 @@
 // float32 FMAs on the CUDA cores (no tensor cores, so no TF32 question).
 // When key positions are the indices (kv_pos null), key tiles wholly above
 // the causal diagonal or wholly before the window are skipped, as
-// flash_attention.py:66 does. Decode (Sq*g <= 16 rows) takes a 16-row
-// tile. Ragged rows and keys are masked in-kernel: keys past T take -inf
-// (exp gives exactly 0), so no caller pads.
+// flash_attention.py:66 does. Ragged rows and keys are masked in-kernel:
+// keys past T take -inf (exp gives exactly 0), so no caller pads.
 #include <climits>
 #include <cstdint>
 
@@ -52,6 +53,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBQ = 64;           // query rows per block
 constexpr int kBKV = 64;          // keys per tile
 constexpr int kPad = 4;           // keeps float4 rows aligned, banks apart
 constexpr int kLdP = kBKV + kPad;
@@ -92,22 +94,22 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-template <int BQ, int DMAX>
+template <int DMAX>
 struct Layout {
   static constexpr int kLd = DMAX + kPad;
-  static constexpr int kQ = 0;                        // [BQ][kLd]
-  static constexpr int kK = kQ + BQ * kLd;            // [kBKV][kLd]
+  static constexpr int kQ = 0;                        // [kBQ][kLd]
+  static constexpr int kK = kQ + kBQ * kLd;            // [kBKV][kLd]
   static constexpr int kV = kK + kBKV * kLd;          // [kBKV][DMAX]
-  static constexpr int kP = kV + kBKV * DMAX;         // [BQ][kLdP]
-  static constexpr int kPos = kP + BQ * kLdP;         // [kBKV] int
+  static constexpr int kP = kV + kBKV * DMAX;         // [kBQ][kLdP]
+  static constexpr int kPos = kP + kBQ * kLdP;         // [kBKV] int
   static constexpr size_t kBytes = sizeof(float) * (kPos + kBKV);
 };
 
-template <typename T, int BQ, int DMAX>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const Args a) {
-  using L = Layout<BQ, DMAX>;
-  constexpr int RI = BQ / 16;     // rows a thread owns
+  using L = Layout<DMAX>;
+  constexpr int RI = kBQ / 16;     // rows a thread owns
   constexpr int CO = DMAX / 16;   // output columns a thread owns
   constexpr int D4 = DMAX / 4;
   extern __shared__ __align__(16) float smem[];
@@ -121,11 +123,11 @@ __global__ void __launch_bounds__(kThreads)
   const T* __restrict__ k = static_cast<const T*>(a.k);
   const T* __restrict__ v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * BQ, hk = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * kBQ, hk = blockIdx.y, b = blockIdx.z;
   const int g = a.g, R = a.Sq * g, D = a.D;
 
   // Q tile, widened to float32; rows past R and columns past D are 0
-  for (int i = tid; i < BQ * D4; i += kThreads) {
+  for (int i = tid; i < kBQ * D4; i += kThreads) {
     const int r = i / D4, d = (i % D4) * 4, row = row0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < R && d < D) {
@@ -139,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
   // the causal diagonal or wholly before the window of every row here
   int t_lo = 0, t_hi = a.T;
   if (a.kv_pos == nullptr) {
-    const int s_lo = row0 / g, s_hi = (min(row0 + BQ, R) - 1) / g;
+    const int s_lo = row0 / g, s_hi = (min(row0 + kBQ, R) - 1) / g;
     if (a.causal) t_hi = min(a.T, a.q_offset + s_hi + 1);
     if (a.window > 0) t_lo = max(0, a.q_offset + s_lo - a.window + 1);
     t_lo = (t_lo / kBKV) * kBKV;
@@ -287,10 +289,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BQ, int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using L = Layout<BQ, DMAX>;
-  auto kernel = flash_attention_kernel<T, BQ, DMAX>;
+  using L = Layout<DMAX>;
+  auto kernel = flash_attention_kernel<T, DMAX>;
   // above 48 KB a block's shared memory must be asked for; asking once
   // per instantiation and device is enough
   static int configured_for = -1;
@@ -304,20 +306,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured_for = dev;
   }
-  const dim3 grid((a.Sq * a.g + BQ - 1) / BQ, a.Hkv, a.B);
+  const dim3 grid((a.Sq * a.g + kBQ - 1) / kBQ, a.Hkv, a.B);
   kernel<<<grid, kThreads, L::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
-  const bool small = a.Sq * a.g <= 16;  // decode: one 16-row tile
-  if (a.D <= 64)
-    return small ? launch<T, 16, 64>(a, stream) : launch<T, 64, 64>(a, stream);
-  if (a.D <= 128)
-    return small ? launch<T, 16, 128>(a, stream)
-                 : launch<T, 64, 128>(a, stream);
-  return small ? launch<T, 16, 256>(a, stream) : launch<T, 64, 256>(a, stream);
+  if (a.D <= 64) return launch<T, 64>(a, stream);
+  if (a.D <= 128) return launch<T, 128>(a, stream);
+  return launch<T, 256>(a, stream);
 }
 
 }  // namespace
@@ -330,14 +328,12 @@ cudaError_t dispatch(const Args& a, cudaStream_t stream) {
 // H % Hkv == 0, strides and base addresses multiples of 4 elements.
 // Launches on `stream` without synchronising; returns the launch's
 // cudaError_t (0 = launched).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
-                                      const int32_t* kv_pos,
-                                      const long long* strides, int B, int Sq,
-                                      int T, int H, int Hkv, int D,
-                                      int causal, int window, int q_offset,
-                                      float scale, int bf16, int device,
-                                      void* stream) {
+extern "C" int flash_simt_launch(const void* q, const void* k, const void* v,
+                                 void* o, const int32_t* kv_pos,
+                                 const long long* strides, int B, int Sq,
+                                 int T, int H, int Hkv, int D, int causal,
+                                 int window, int q_offset, float scale,
+                                 int bf16, int device, void* stream) {
   if (D <= 0 || D % 16 != 0 || D > 256 || Hkv <= 0 || H % Hkv != 0 ||
       B <= 0 || Sq <= 0 || T <= 0)
     return static_cast<int>(cudaErrorInvalidValue);

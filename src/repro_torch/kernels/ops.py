@@ -26,8 +26,11 @@ from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import pairwise_l2 as _pairwise_kernel
 from repro_torch.kernels import ref
 
+# "flash_attention" counts calls of the attention region (one a layer);
+# the three route counters say which kernel served each call
 LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
-            "bucket_assign": 0, "flash_attention": 0}
+            "bucket_assign": 0, "flash_attention": 0,
+            **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()}}
 
 
 def reset_launches() -> None:
@@ -194,10 +197,20 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
         return torch.zeros((b, sq, h, d), dtype=q.dtype, device=dev)
     if kv_positions is not None:
         kv_positions = kv_positions.to(torch.int32).contiguous()
-    out = _flash_kernel.flash_attention(
-        q, k, v, causal=causal, window=window, q_offset=q_offset,
-        scale=d ** -0.5, kv_positions=kv_positions)
+    return _launch_flash(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, scale=d ** -0.5,
+                         kv_positions=kv_positions)
+
+
+def _launch_flash(q, k, v, **kw) -> torch.Tensor:
+    """Launch the route ``launch_plan`` picks for (B, S, H, D) operands and
+    count the call, once in all and once under its route."""
+    b, sq, h, d = q.shape
+    plan = _flash_kernel.launch_plan(b, sq, k.shape[1], h, k.shape[2], d,
+                                     q.dtype)
+    out = _flash_kernel.flash_attention(q, k, v, plan=plan, **kw)
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[_flash_kernel.ROUTE_COUNTERS[plan.route]] += 1
     return out
 
 
@@ -226,11 +239,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     b, h, s, t = *q.shape[:3], k.shape[2]
     if 0 in (b, h, s, t):
         return torch.zeros_like(q)
-    out = _flash_kernel.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=0, q_offset=t - s, scale=scale,
-        kv_positions=None)
-    LAUNCHES["flash_attention"] += 1
+    out = _launch_flash(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=0,
+                        q_offset=t - s, scale=scale, kv_positions=None)
     return out.transpose(1, 2)
 
 

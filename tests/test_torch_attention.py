@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models.layers import gqa_scores_chunked  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -125,3 +126,96 @@ def test_gqa_attention_rejects_mismatched_heads():
     with pytest.raises(ValueError):
         tops.gqa_attention(q, k[:, :, :3], k[:, :, :3], causal=True,
                            kv_positions=torch.zeros(5, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route plan and the tensor-core route's arithmetic
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,dtype,route,n_splits", [
+    ((4, 1, 512, 16, 8, 128), torch.bfloat16, "split", 8),   # qwen3 decode
+    ((4, 1, 512, 16, 8, 128), torch.float32, "split", 8),
+    ((4, 2048, 2048, 16, 8, 128), torch.bfloat16, "tc", 0),  # qwen3 prefill
+    ((4, 2048, 2048, 16, 8, 128), torch.float32, "simt", 0),
+    ((1, 16, 100, 4, 4, 64), torch.bfloat16, "split", 2),    # Sq·g = 16
+    ((1, 17, 100, 4, 4, 64), torch.bfloat16, "tc", 0),       # Sq·g = 17
+    ((1, 17, 100, 4, 4, 64), torch.float32, "simt", 0),
+    ((1, 8, 100, 4, 2, 128), torch.bfloat16, "split", 2),
+    ((1, 9, 100, 4, 2, 128), torch.bfloat16, "tc", 0),
+    ((2, 40, 64, 12, 2, 256), torch.bfloat16, "tc", 0),      # g = 6
+    ((2, 40, 64, 12, 2, 32), torch.bfloat16, "simt", 0),     # D not 64/128/256
+    ((2, 1, 64, 8, 1, 128), torch.bfloat16, "split", 1),
+    ((2, 1, 65, 8, 1, 128), torch.bfloat16, "split", 2),
+    ((2, 2, 4096, 16, 2, 96), torch.float32, "split", 64),
+])
+def test_launch_plan(shape, dtype, route, n_splits):
+    b, sq, t, h, hkv, d = shape
+    plan = tflash.launch_plan(b, sq, t, h, hkv, d, dtype)
+    assert plan.route == route
+    assert plan.n_splits == n_splits
+    if route == "split":
+        rows = sq * (h // hkv)
+        assert plan.ml_shape == (b, hkv, n_splits, rows, 2)
+        assert plan.acc_shape == (b, hkv, n_splits, rows, d)
+        assert (n_splits - 1) * tflash.SPLIT_KEYS < t \
+            <= n_splits * tflash.SPLIT_KEYS
+        assert plan.align * dtype.itemsize == 16   # 16-byte loads
+    else:
+        assert plan.ml_shape == plan.acc_shape == ()
+        assert plan.align == (8 if route == "tc" else 4)
+    assert tflash.launch_plan(b, sq, t, h, hkv, d, dtype) == plan
+
+
+def _tc_prefill_emulation(q, k, v, *, bn: int = 64):
+    """The tensor-core prefill route's arithmetic, causal from position 0,
+    in plain PyTorch: rows r = s·g + h % g, 64-key tiles, scores from bf16
+    operands summed in float32, an online softmax in base 2, P split into
+    P_hi = bf16(P) and P_lo = bf16(P − P_hi), each multiplied by bf16 V
+    with float32 sums, l from the float32 P; → float32 (B, S, H, D)."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    rows = s * g
+    qg = q.reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, rows, d)
+    kk, vv = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    qpos = torch.arange(rows) // g
+    m = torch.full((b, hkv, rows), -1e30)
+    l = torch.zeros((b, hkv, rows))
+    o = torch.zeros((b, hkv, rows, d))
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    for c0 in range(0, t, bn):
+        cols = torch.arange(c0, min(c0 + bn, t))
+        sc = (qg @ kk[:, :, cols].transpose(-1, -2)) * scale_log2
+        sc = torch.where(qpos[:, None] >= cols[None, :], sc, -1e30)
+        mx = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(sc - mx[..., None])
+        l = l * corr + p.sum(-1)
+        m = mx
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        o = o * corr[..., None] + hi @ vv[:, :, cols] + lo @ vv[:, :, cols]
+    o = o / l.clamp_min(1e-30)[..., None]
+    return o.reshape(b, hkv, s, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, s, h, d)
+
+
+def test_tc_prefill_arithmetic_matches_gqa_scores_chunked():
+    """The precision design of flash_prefill_sm90.cu, checked on the CPU
+    before the card: at D 128, g 2, causal S 256, its arithmetic on bf16
+    inputs stays within the float32 limit (2e-4 · (1 + |want|)) of JAX's
+    float32 ``gqa_scores_chunked`` before the output is rounded, and
+    within the bf16 limit (4e-3 · (1 + |want|)) after."""
+    rng = _rng(13, 256)
+    b, s, hkv, g, d = 2, 256, 2, 2, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .to(torch.bfloat16).float()
+               for shp in ((b, s, hkv * g, d), (b, s, hkv, d),
+                           (b, s, hkv, d)))
+    want = np.asarray(jax.jit(lambda q, k, v: gqa_scores_chunked(
+        q, k, v, causal=True))(q.numpy(), k.numpy(), v.numpy()))
+    got = _tc_prefill_emulation(q, k, v)
+    limit = 1.0 + np.abs(want)
+    assert (np.abs(got.numpy() - want) <= 2e-4 * limit).all()
+    got16 = got.to(torch.bfloat16).float().numpy()
+    assert (np.abs(got16 - want) <= 4e-3 * limit).all()
