@@ -14,12 +14,19 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``DiskJoinIndex.build`` → ``self_join`` (device mode) →
    ``query_batch`` of 1,000 queries in host and device mode. The kernels'
    launch counts are zeroed just before and read just after; every kernel
-   must have launched. Recall against brute force (float64, on the card)
-   for 2,000 rows must reach 0.88; query memberships of the two modes must
-   agree except on ε-boundary pairs.
+   must have launched, and every verify launch (batched and E = 1) must
+   have taken the tensor-core route (``pairwise_l2_sm90.cu``). Recall
+   against brute force (float64, on the card) for 2,000 rows must reach
+   0.88; query memberships of the two modes must agree except on
+   ε-boundary pairs.
 3. Every kernel against its plain PyTorch version at the shapes the main
-   path gave it, then timed (CUDA events over warm launches) beside its
-   plain version, a library call where one exists, and its bound.
+   path gave it, then timed beside its plain version, a library call where
+   one exists, and its bound: device time from CUDA graphs, with the eager
+   loop's time (launch latency included) beside it. The verify kernel's
+   CUDA-core route (``pairwise_l2.cu``) is checked and timed at the
+   batched shape too, and both routes and the plain version are held
+   against float64 on the same lanes (d² bias near ε², ε-pairs missed and
+   kept).
 4. Host/device byte parity of ``self_join`` at 100,000 × 128.
 5. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
@@ -67,12 +74,14 @@ from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
 PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense
 PEAK_BF16_FLOPS = 989e12   # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12       # HBM3
 D2_RTOL, D2_ATOL = 1e-4, 1e-3   # tests/test_kernels.py's d² tolerance
@@ -96,6 +105,9 @@ LM_DECODE_POS = 300                # decode check: cache slots >= 301 empty
 # differs from the plain version's in the last bits may round to the
 # neighbouring bf16 value
 ATTN_TOL = {torch.bfloat16: 4e-3, torch.float32: 2e-4}
+VERIFY_SOURCES = {
+    "tc": "src/repro_torch/kernels/csrc/pairwise_l2_sm90.cu",
+    "simt": "src/repro_torch/kernels/csrc/pairwise_l2.cu"}
 FLASH_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -253,6 +265,11 @@ def phase_main_path(workdir: str) -> dict:
     log(f"[main] launches {launches}")
     check(all(launches[k] > 0 for k in JOIN_KERNELS),
           f"a kernel never launched on the main path: {launches}")
+    verify_launches = (launches["verify_pairs_batch"]
+                       + launches["pairwise_l2_threshold"])
+    check(launches["verify_simt"] == 0
+          and launches["verify_tc"] == verify_launches,
+          f"a verify launch left the tensor-core route: {launches}")
 
     check_join_output(x, eps, res)
     t0 = time.perf_counter()
@@ -315,12 +332,40 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(flops: float, nbytes: float,
-          flops_bf16: float = 0.0) -> tuple[float, str]:
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in
+    a CUDA graph, replayed ``replays`` times between CUDA events after a
+    warm replay, so the host's launch cost (tens of µs a call) does not
+    set the reading of a kernel shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def bound(flops: float, nbytes: float, flops_bf16: float = 0.0,
+          flops_tf32: float = 0.0) -> tuple[float, str]:
     """Least time in ms: float32 ``flops`` at the CUDA cores' peak plus
-    ``flops_bf16`` (bf16 operands) at the tensor cores', or ``nbytes`` at
-    HBM's rate, whichever is larger."""
-    t_ops = flops / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+    ``flops_bf16`` (bf16 operands) and ``flops_tf32`` (TF32 operands) at the
+    tensor cores', or ``nbytes`` at HBM's rate, whichever is larger."""
+    t_ops = (flops / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+             + flops_tf32 / PEAK_TF32_FLOPS)
     t_mem = nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes")
@@ -348,66 +393,127 @@ def bucket_lanes(index, E: int) -> torch.Tensor:
     return torch.from_numpy(np.stack(lanes)).cuda()
 
 
+def f64_agreement(u, v, eps, outs: dict) -> dict:
+    """Each version's (d², mask) against float64 truth on the same lanes:
+    the mean signed d² error where the truth lies within 0.02 of ε², and
+    the true ε-pairs missed and false ones kept."""
+    u64, v64 = u.double(), v.double()
+    t64 = ((u64 * u64).sum(-1)[..., :, None]
+           + (v64 * v64).sum(-1)[..., None, :]
+           - 2.0 * (u64 @ v64.transpose(1, 2))).clamp_min(0.0)
+    eps2 = float(eps) * float(eps)
+    truth = t64 <= eps2
+    near = (t64 - eps2).abs() < 0.02
+    res = {}
+    for name, (d2, mask) in outs.items():
+        res[name] = dict(
+            bias_near_eps=(d2.double() - t64)[near].mean().item(),
+            missed=int((truth & ~mask).sum().item()),
+            extra=int((mask & ~truth).sum().item()))
+    res["true_pairs"] = int(truth.sum().item())
+    return res
+
+
+def verify_bound(e: int, m: int, n: int, d: int) -> tuple[float, str]:
+    """Least time of float32-accurate verify on the card: its products as
+    three TF32 tensor-core passes (the 3×TF32 split; one pass keeps too few
+    digits), or each operand read once and d² + mask written once."""
+    return bound(0.0, 4.0 * e * (m + n) * d + 5.0 * e * m * n,
+                 flops_tf32=3 * 2.0 * e * m * n * d)
+
+
 def phase_kernels(main: dict) -> list[dict]:
     s = main["shapes"]
     eps, cap, E, d = s["eps"], s["cap"], s["E"], DIM
     eps2 = ops.eps2_f32(eps)
     out = []
 
-    # verify, batched: (E, cap, d) x (E, cap, d)
+    # verify, batched: (E, cap, d) x (E, cap, d), both routes
     u = bucket_lanes(s["index"], E)
     v = torch.roll(u, shifts=1, dims=0)   # lane e: bucket e vs bucket e-1
     v[: E // 2] = u[: E // 2]             # half the lanes intra-bucket
+    plan = verify.launch_plan(cap, cap, d)
+    check(plan.route == "tc", f"main verify shape routed to {plan}")
     d2k, mk = ops.verify_pairs_batch(u, v, eps)
     d2r, mr = ref.pairwise_l2_threshold(u, v, eps2)
     torch.cuda.synchronize()
     err, n_dis = check_d2(d2k, d2r, mk, mr, eps)
-    ms = cuda_ms(lambda: ops.verify_pairs_batch(u, v, eps))
-    plain = cuda_ms(lambda: ref.pairwise_l2_threshold(u, v, eps2))
-    lib = cuda_ms(lambda: torch.cdist(u, v))
-    bms, by = bound(2.0 * E * cap * cap * d,
-                    4.0 * E * 2 * cap * d + 5.0 * E * cap * cap)
-    log(f"[kernel] verify_pairs_batch ({E}, {cap}, {cap}, {d}): max abs "
-        f"err {err!r}, mask disagreements {n_dis} (all within "
-        f"{MASK_BAND} of eps^2), pairs in mask {int(mk.sum().item())}")
+    n_pairs = int(mk.sum().item())
+    simt = verify.LaunchPlan("simt")
+    d2s, ms_ = verify.pairwise_l2_threshold_batched(u, v, eps2, simt)
+    ms_ = ms_.view(torch.bool)
+    torch.cuda.synchronize()
+    err_simt, n_dis_simt = check_d2(d2s, d2r, ms_, mr, eps)
+    f64 = f64_agreement(u, v, eps, {"tc": (d2k, mk), "simt": (d2s, ms_),
+                                    "plain": (d2r, mr)})
+    del d2k, mk, d2s, ms_, d2r, mr
+    ms = graph_ms(lambda: ops.verify_pairs_batch(u, v, eps))
+    simt_ms = graph_ms(lambda: verify.pairwise_l2_threshold_batched(
+        u, v, eps2, simt))
+    eager = cuda_ms(lambda: ops.verify_pairs_batch(u, v, eps))
+    plain = graph_ms(lambda: ref.pairwise_l2_threshold(u, v, eps2), reps=5)
+    lib = graph_ms(lambda: torch.cdist(u, v), reps=5)
+    bms, by = verify_bound(E, cap, cap, d)
+    log(f"[kernel] verify_pairs_batch ({E}, {cap}, {cap}, {d}): route "
+        f"{plan.route} (block {plan.block_m}); max abs err {err!r}, mask "
+        f"disagreements {n_dis} (all within {MASK_BAND} of eps^2), pairs in "
+        f"mask {n_pairs}; simt route max abs err {err_simt!r}, mask "
+        f"disagreements {n_dis_simt}; device ms tc {ms:.4f}, simt "
+        f"{simt_ms:.4f} (tc {simt_ms / ms:.2f}x faster); eager tc "
+        f"{eager:.4f}")
+    log(f"[kernel] verify_pairs_batch vs float64 on the same lanes "
+        f"({f64['true_pairs']} true pairs): " + "; ".join(
+            f"{k} mean d2 error near eps^2 {f64[k]['bias_near_eps']:+.3e}, "
+            f"missed {f64[k]['missed']}, extra {f64[k]['extra']}"
+            for k in ("tc", "simt", "plain")))
     out.append(dict(
         name="pairwise_l2_threshold_batched", route="cuda",
-        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        source=VERIFY_SOURCES["tc"],
         replaces="src/repro/kernels/pairwise_l2.py:86",
         launches=main["launches"]["verify_pairs_batch"], max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+        kernel_route=plan.route, simt_ms=simt_ms, simt_max_abs_err=err_simt,
+        simt_source=VERIFY_SOURCES["simt"], eager_ms=eager, f64=f64,
         shape=[E, cap, cap, d], ok=True))
-    del d2k, mk, d2r, mr
 
     # verify, unbatched (E = 1): the device query path's (q_rows, cap) tile
     qr = s["q_rows"]
     q = torch.from_numpy(s["Q"][:qr]).cuda()
     slab = u[0]
+    plan1 = verify.launch_plan(qr, cap, d)
+    check(plan1.route == "tc", f"query tile routed to {plan1}")
     d2k, mk = ops.pairwise_l2_threshold(q, slab, eps)
     d2r, mr = ref.pairwise_l2_threshold(q, slab, eps2)
     torch.cuda.synchronize()
     err1, n_dis1 = check_d2(d2k, d2r, mk, mr, eps)
-    ms = cuda_ms(lambda: ops.pairwise_l2_threshold(q, slab, eps), reps=100)
-    plain = cuda_ms(lambda: ref.pairwise_l2_threshold(q, slab, eps2),
+    ms = graph_ms(lambda: ops.pairwise_l2_threshold(q, slab, eps))
+    eager = cuda_ms(lambda: ops.pairwise_l2_threshold(q, slab, eps),
                     reps=100)
-    lib = cuda_ms(lambda: torch.cdist(q, slab), reps=100)
-    bms, by = bound(2.0 * qr * cap * d, 4.0 * (qr + cap) * d
-                    + 5.0 * qr * cap)
-    # lane independence: the E = 1 launch gives the batched launch's bytes
+    plain = graph_ms(lambda: ref.pairwise_l2_threshold(q, slab, eps2))
+    lib = graph_ms(lambda: torch.cdist(q, slab))
+    bms, by = verify_bound(1, qr, cap, d)
+    # lane independence: the E = 1 launch gives the batched launch's bytes,
+    # and the query tile's bytes do not depend on the tile shape
     d2a, _ = ops.verify_pairs_batch(u[:2], v[:2], eps)
     d2b, _ = ops.pairwise_l2_threshold(u[1], v[1], eps)
     check(torch.equal(d2a[1], d2b), "E=1 launch differs from its lane")
-    log(f"[kernel] pairwise_l2_threshold ({qr}, {cap}, {d}): max abs err "
-        f"{err1!r}, mask disagreements {n_dis1}; E=1 launch bytes == "
-        f"batched lane bytes")
+    d2t, _ = verify.pairwise_l2_threshold_batched(
+        q[None], slab[None], eps2, verify.LaunchPlan("tc", 128))
+    check(torch.equal(d2t[0], d2k), "query tile bytes depend on the tile")
+    log(f"[kernel] pairwise_l2_threshold ({qr}, {cap}, {d}): route "
+        f"{plan1.route} (block {plan1.block_m}); max abs err {err1!r}, mask "
+        f"disagreements {n_dis1}; E=1 launch bytes == batched lane bytes; "
+        f"64- and 128-row tiles give the same bytes; device ms {ms:.4f}, "
+        f"eager {eager:.4f}")
     out.append(dict(
         name="pairwise_l2_threshold", route="cuda",
-        source="src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        source=VERIFY_SOURCES["tc"],
         replaces="src/repro/kernels/pairwise_l2.py:128",
         launches=main["launches"]["pairwise_l2_threshold"],
         max_abs_err=err1, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=lib, shape=[qr, cap, d], ok=True))
-    del u, v
+        library_ms=lib, kernel_route=plan1.route, eager_ms=eager,
+        shape=[qr, cap, d], ok=True))
+    del u, v, d2a, d2b, d2t
 
     # assign: one scan-2 block against the sampled centers
     xb = torch.from_numpy(s["x"][: s["block_rows"]]).cuda()
@@ -421,8 +527,9 @@ def phase_kernels(main: dict) -> list[dict]:
     over = (dk - dr).abs() - (D2_ATOL + D2_RTOL * dr.abs())
     check(over.max().item() <= 0, "assign d2 outside tolerance")
     err2 = (dk - dr).abs().max().item()
-    ms = cuda_ms(lambda: ops.bucket_assign(xb, c), reps=50)
-    plain = cuda_ms(lambda: ref.bucket_assign(xb, c), reps=50)
+    ms = graph_ms(lambda: ops.bucket_assign(xb, c))
+    eager = cuda_ms(lambda: ops.bucket_assign(xb, c), reps=50)
+    plain = graph_ms(lambda: ref.bucket_assign(xb, c))
     bms, by = bound(2.0 * m * b * d, 4.0 * (m + b) * d + 8.0 * m)
     log(f"[kernel] bucket_assign ({m}, {b}, {d}): argmin equal, max abs err "
         f"{err2!r}")
@@ -432,9 +539,10 @@ def phase_kernels(main: dict) -> list[dict]:
         replaces="src/repro/kernels/bucket_assign.py:49",
         launches=main["launches"]["bucket_assign"], max_abs_err=err2,
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        shape=[m, b, d], ok=True))
+        eager_ms=eager, shape=[m, b, d], ok=True))
     for k in out:
-        log(f"[kernel] {k['name']}: kernel {k['ms']:.4f} ms, plain "
+        log(f"[kernel] {k['name']}: kernel {k['ms']:.4f} ms (eager "
+            f"{k['eager_ms']:.4f}), plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}), roofline share "
             f"{k['bound_ms'] / k['ms']:.3f}")
@@ -511,33 +619,6 @@ def host_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in
-    a CUDA graph, replayed ``replays`` times between CUDA events after a
-    warm replay, so the host's launch cost (tens of µs a call) does not
-    set the reading of a kernel shorter than it."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * replays)
-
-
 def rolling_positions(steps: int, written: int) -> torch.Tensor:
     """kpos of a decode cache after positions 0..written-1 (−1: empty)."""
     pos = torch.arange(steps, dtype=torch.int32)
@@ -568,10 +649,14 @@ def check_attention(q, k, v, kw) -> float:
 
 def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     """One shape of the path: checked in bf16 (the path's dtype) and
-    float32, each through the route ``launch_plan`` gives it; timed in bf16
+    float32, each through the route ``launch_plan`` gives it; timed in both
     beside the plain version, SDPA and the bound. ``launches``: the main
     path's count of the bf16 route."""
-    errs, routes, ms = {}, {}, {}
+    errs, routes, ms, plain, lib = {}, {}, {}, {}, {}
+    mask = ref.gqa_mask(sq, kw.get("kv_positions",
+                                   torch.arange(t, device="cuda")),
+                        causal=True, window=0, q_offset=kw.get("q_offset", 0))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attn_inputs(cfg, LM_SLOTS, sq, t, dtype, seed=sq + t)
         routes[dtype] = flash.launch_plan(
@@ -579,23 +664,20 @@ def attention_row(name, cfg, sq, t, kw, launches) -> dict:
             dtype).route
         errs[dtype] = check_attention(q, k, v, kw)
         ms[dtype] = graph_ms(lambda: ops.gqa_attention(q, k, v, **kw))
-    plain = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw), reps=5)
-    # the library call computes the same function: is_causal (top-left
-    # aligned) for S == T from position 0, a boolean key mask for decode
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = ref.gqa_mask(sq, kw.get("kv_positions",
-                                   torch.arange(t, device="cuda")),
-                        causal=True, window=0, q_offset=kw.get("q_offset", 0))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    if sq == t and "kv_positions" not in kw:
-        lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                              enable_gqa=True)
-    else:
-        lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
-                              enable_gqa=True)
+        plain[dtype] = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw),
+                                reps=5)
+        # the library call computes the same function: is_causal (top-left
+        # aligned) for S == T from position 0, a boolean key mask for decode
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if sq == t and "kv_positions" not in kw:
+            lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                                  enable_gqa=True)
+        else:
+            lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                  enable_gqa=True)
+        lib[dtype] = graph_ms(lib_fn)
     want = ref.gqa_attention(q, k, v, **kw).float()
     lib_err = (lib_fn().transpose(1, 2).float() - want).abs().max().item()
-    lib = graph_ms(lib_fn)
     # every product at the bf16 tensor-core rate (Q·Kᵀ and P·V: 2 x matmul
     # FLOPs; the prefill kernel's split of P into two bf16 products is its
     # design's cost, not the work's). Bytes: Q and O, the K/V rows some
@@ -604,26 +686,34 @@ def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     keys = int(mask.any(0).sum().item())    # cache rows that must be read
     matmul = 2.0 * LM_SLOTS * cfg.n_heads * cfg.head_dim * visible
     pos = kw.get("kv_positions")
-    nbytes = (q.element_size() * (2 * q.numel() + 2 * LM_SLOTS * keys
-                                  * cfg.n_kv_heads * cfg.head_dim)
-              + (0 if pos is None else pos.numel() * pos.element_size()))
-    bms, by = bound(0.0, nbytes, flops_bf16=2.0 * matmul)
+    elems = (2 * q.numel()
+             + 2 * LM_SLOTS * keys * cfg.n_kv_heads * cfg.head_dim)
+    pos_bytes = 0 if pos is None else pos.numel() * pos.element_size()
+    bms, by = bound(0.0, 2 * elems + pos_bytes, flops_bf16=2.0 * matmul)
+    # float32 runs on the CUDA cores: every product at their rate
+    bms32, by32 = bound(2.0 * matmul, 4 * elems + pos_bytes)
     route = routes[torch.bfloat16]
     log(f"[lm] flash {name} {tuple(q.shape)} x {tuple(k.shape)}: routes "
         f"bf16 {route}, f32 {routes[torch.float32]}; max abs err bf16 "
         f"{errs[torch.bfloat16]!r}, f32 {errs[torch.float32]!r}; kernel "
         f"{ms[torch.bfloat16]:.4f} ms (f32 {ms[torch.float32]:.4f} ms), "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (sdpa vs plain max abs "
-        f"{lib_err:.3g}), bound {bms:.4f} ms ({by}), share "
-        f"{bms / ms[torch.bfloat16]:.3f}")
+        f"plain {plain[torch.bfloat16]:.4f} ms (f32 "
+        f"{plain[torch.float32]:.4f}), sdpa {lib[torch.bfloat16]:.4f} ms "
+        f"(f32 {lib[torch.float32]:.4f}; bf16 sdpa vs plain max abs "
+        f"{lib_err:.3g}), bound {bms:.4f} ms ({by}; f32 {bms32:.4f}, "
+        f"{by32}), share {bms / ms[torch.bfloat16]:.3f} (f32 "
+        f"{bms32 / ms[torch.float32]:.3f})")
     return dict(
         name=f"flash_attention ({name})", route="cuda",
         source=FLASH_SOURCES[route],
         replaces="src/repro/kernels/flash_attention.py:77",
         launches=launches, max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32=errs[torch.float32], ms=ms[torch.bfloat16],
-        f32_ms=ms[torch.float32], plain_ms=plain,
-        bound_ms=bms, bound_by=by, library_ms=lib, library_max_abs_err=lib_err,
+        f32_ms=ms[torch.float32], plain_ms=plain[torch.bfloat16],
+        f32_plain_ms=plain[torch.float32], bound_ms=bms, bound_by=by,
+        f32_bound_ms=bms32, f32_bound_by=by32,
+        library_ms=lib[torch.bfloat16], f32_library_ms=lib[torch.float32],
+        library_max_abs_err=lib_err,
         kernel_route=route, f32_route=routes[torch.float32],
         f32_source=FLASH_SOURCES[routes[torch.float32]],
         shape=[LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],

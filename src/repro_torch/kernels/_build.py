@@ -103,6 +103,10 @@ def load() -> ctypes.CDLL:
         lib.pairwise_l2_threshold_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
         lib.pairwise_l2_threshold_launch.restype = i32
+        lib.pairwise_l2_sm90_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, i32,
+            ptr]
+        lib.pairwise_l2_sm90_launch.restype = i32
         lib.bucket_assign_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.bucket_assign_launch.restype = i32

@@ -57,12 +57,13 @@
 #include <cstdint>
 #include <cstring>
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
-                   // run time, so nothing links against libcuda
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kRows = 128;                  // query rows of a block
 constexpr int kThreads = 256;               // two warpgroups
@@ -100,103 +101,6 @@ struct Args {
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000u);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA -------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait of more
-// than 2^34 clocks (seconds) can only be a broken pipeline: trap, so the
-// launch fails with an error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_"
-      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// --- wgmma -------------------------------------------------------------------
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address >> 4, leading byte offset (LBO) and stride byte offset (SBO) in
-// 16-byte units, layout type 1 (128-byte swizzle) in bits 62-63. K-major
-// tiles (Q, K): SBO = 1024 bytes between 8-row groups, LBO unused (1).
-// The MN-major V tile: SBO = 1024 bytes between 8-key groups, LBO = the
-// stride between 64-column panels along D.
-__device__ __forceinline__ uint64_t desc_bits(uint32_t lbo_bytes) {
-  return (uint64_t(1) << 62) | (uint64_t(1024 >> 4) << 32) |
-         (uint64_t(lbo_bytes >> 4) << 16);
-}
-
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint64_t bits) {
-  return bits | uint64_t((addr & 0x3FFFF) >> 4);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma operands across
-// the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // S (64 x N) = A (64 x 16) B (N x 16)^T, both K-major in shared memory;
@@ -367,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kThreads);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -403,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint4*>(sbase + L::kQ + (c / 8) * L::kQPanel +
                                 r * 128 + (((c % 8) ^ (r % 8)) * 16)) = x;
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     named_barrier_sync(1 + wg, 128);
   }
 
@@ -562,34 +466,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- host side ---------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // a bf16 (B, steps, heads, D) tensor read through element strides, as a
 // 4-D map over (D, heads, steps, B) with a box of 64 x box_heads x
 // box_steps x 1 and the 128-byte swizzle
@@ -633,10 +509,6 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   const dim3 grid((a.Sq * a.g + kRows - 1) / kRows, Hkv, B);
   kernel<<<grid, kThreads, L::kAlloc, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

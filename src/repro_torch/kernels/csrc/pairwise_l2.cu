@@ -1,5 +1,8 @@
-// Batched pairwise squared-L2 distance with an epsilon threshold: the
-// verify step of every DiskJoin flush, in both compute modes.
+// Batched pairwise squared-L2 distance with an epsilon threshold on the
+// CUDA cores: the verify route for rows that are not 16-byte aligned
+// (D % 4 != 0, kernels/pairwise_l2.py::launch_plan). Aligned rows, the
+// whole main path, take pairwise_l2_sm90.cu on the tensor cores, which
+// computes the same function.
 //
 // Replaces: src/repro/kernels/pairwise_l2.py, pairwise_l2_threshold_batched
 // (body _pairwise_kernel_batched) and its unbatched twin
@@ -11,12 +14,13 @@
 //   mask[e,i,j] = d2[e,i,j] <= eps2               (int8)
 // eps2 arrives as the float32 rounding of the float64 product eps*eps.
 //
-// What bounds it on an H100: at the main path's shape (E = 32 lanes of
-// 2048 x 2048 x 128) a lane is 1.07 GFLOP against ~23 MB of traffic (2.1 MB
-// in, 21 MB of d2 + mask out), so it is bound by float32 FMA throughput
-// outside the tensor cores (67 TFLOP/s: ~16 us a lane; memory ~7 us).
-// TF32 tensor cores would be faster but keep ~3 decimal digits, which the
-// verify tolerances do not absorb.
+// What bounds it on an H100: at a shape like the main path's (E = 32
+// lanes of 2048 x 2048 x 128) a lane is 1.07 GFLOP against ~23 MB of
+// traffic (2.1 MB in, 21 MB of d2 + mask out), so it is bound by float32
+// FMA throughput outside the tensor cores (67 TFLOP/s: ~16 us a lane;
+// memory ~7 us). Plain TF32 on the tensor cores keeps ~3 decimal digits,
+// which the verify tolerances do not absorb; the tensor-core route splits
+// each operand into two TF32 halves (3xTF32) to keep float32's accuracy.
 //
 // Design: the TPU kernel's sequential k grid axis becomes the depth loop
 // inside one thread block per (lane, 128 x 128 output tile) (l2_tile.cuh);

@@ -26,9 +26,11 @@ from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import pairwise_l2 as _pairwise_kernel
 from repro_torch.kernels import ref
 
-# "flash_attention" counts calls of the attention region (one a layer);
-# the three route counters say which kernel served each call
+# per wrapper; the route counters say which kernel served each call: the
+# verify routes count the launches of both distance wrappers, the flash
+# routes the calls of the attention region (one a layer)
 LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
+            **{c: 0 for c in _pairwise_kernel.ROUTE_COUNTERS.values()},
             "bucket_assign": 0, "flash_attention": 0,
             **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()}}
 
@@ -83,8 +85,7 @@ def pairwise_l2_threshold(a, b, eps: float):
         return (torch.empty((a.shape[0], b.shape[0]), device=dev),
                 torch.empty((a.shape[0], b.shape[0]), dtype=torch.bool,
                             device=dev))
-    d2, mask = _pairwise_kernel.pairwise_l2_threshold_batched(
-        a[None], b[None], eps2)
+    d2, mask = _launch_verify(a[None], b[None], eps2)
     LAUNCHES["pairwise_l2_threshold"] += 1
     return d2[0], mask[0].view(torch.bool)
 
@@ -108,9 +109,18 @@ def verify_pairs_batch(u, v, eps: float):
     if 0 in shape:
         return (torch.empty(shape, device=dev),
                 torch.empty(shape, dtype=torch.bool, device=dev))
-    d2, mask = _pairwise_kernel.pairwise_l2_threshold_batched(u, v, eps2)
+    d2, mask = _launch_verify(u, v, eps2)
     LAUNCHES["verify_pairs_batch"] += 1
     return d2, mask.view(torch.bool)
+
+
+def _launch_verify(a: torch.Tensor, b: torch.Tensor, eps2: float):
+    """Launch the route ``launch_plan`` picks for (E, M, d) × (E, N, d)
+    operands and count it under its route."""
+    plan = _pairwise_kernel.launch_plan(a.shape[1], b.shape[1], a.shape[2])
+    out = _pairwise_kernel.pairwise_l2_threshold_batched(a, b, eps2, plan)
+    LAUNCHES[_pairwise_kernel.ROUTE_COUNTERS[plan.route]] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

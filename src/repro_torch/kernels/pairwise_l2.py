@@ -1,32 +1,77 @@
-"""Launch of the batched pairwise squared-L2 + threshold CUDA kernel.
+"""Launch of the batched pairwise squared-L2 + threshold CUDA kernels, which
+replace the JAX package's Pallas ``pairwise_l2_threshold_batched`` and, as
+their E = 1 launch, ``pairwise_l2_threshold``. Two routes, chosen per call
+by ``launch_plan`` from the operand shapes alone (never from E):
 
-The kernel (``csrc/pairwise_l2.cu``) replaces the JAX package's Pallas
-``pairwise_l2_threshold_batched`` and, as its E = 1 launch,
-``pairwise_l2_threshold``. Callers go through ``ops``, which checks
-inputs, dispatches by device and counts launches.
-"""
+* ``"tc"`` — rows 16-byte aligned (d % 4 == 0: the whole main path):
+  ``csrc/pairwise_l2_sm90.cu``, split-precision (3×TF32) ``wgmma`` on the
+  tensor cores fed by TMA, in 128 × 128 output tiles, or 64 × 64 where
+  M ≤ 64 (the point queries' tile);
+* ``"simt"`` — the rest: ``csrc/pairwise_l2.cu`` on the CUDA cores.
+
+There is no fallback between routes: a refused launch raises. Callers go
+through ``ops``, which checks inputs, dispatches by device and counts
+launches."""
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import _build
 
+TC_ALIGN = 4        # d % 4 == 0: TMA reads the rows at 16-byte strides
+SMALL_ROWS = 64     # M at or below which the tensor-core route takes 64-row
+ROUTE_COUNTERS = {"tc": "verify_tc", "simt": "verify_simt"}
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one verify launch runs: its route and, for the tensor-core
+    route, the output rows (= columns) of a block, 128 or 64."""
+    route: str
+    block_m: int = 128
+
+
+def launch_plan(m: int, n: int, d: int) -> LaunchPlan:
+    """The route and tile for (E, m, d) × (E, n, d) operands; a pure
+    function of the shapes (E plays no part, so a lane's bytes never
+    depend on the batch it was launched in)."""
+    del n  # every route masks ragged columns itself
+    if d % TC_ALIGN == 0:
+        return LaunchPlan("tc", SMALL_ROWS if m <= SMALL_ROWS else 128)
+    return LaunchPlan("simt")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x itself, or a fresh copy where its base address is not 16-byte
+    aligned (a view into a larger tensor)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
 
 def pairwise_l2_threshold_batched(a: torch.Tensor, b: torch.Tensor,
-                                  eps2: float):
+                                  eps2: float, plan: LaunchPlan):
     """(E, M, d) × (E, N, d) float32 contiguous CUDA tensors →
     (d2 (E, M, N) float32, mask (E, M, N) int8), launched on the current
-    stream. ``eps2`` is passed to the kernel as a float32."""
+    stream by ``plan``'s route. ``eps2`` is passed to the kernel as a
+    float32."""
     e, m, d = a.shape
     n = b.shape[1]
     d2 = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
     mask = torch.empty((e, m, n), dtype=torch.int8, device=a.device)
     lib = _build.load()
-    rc = lib.pairwise_l2_threshold_launch(
-        a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),
-        e, m, n, d, eps2, a.device.index,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if plan.route == "tc":
+        a, b = _aligned(a), _aligned(b)
+        rc = lib.pairwise_l2_sm90_launch(
+            a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),
+            e, m, n, d, eps2, plan.block_m, a.device.index, stream)
+    else:
+        rc = lib.pairwise_l2_threshold_launch(
+            a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),
+            e, m, n, d, eps2, a.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"pairwise_l2_threshold kernel launch failed "
-                           f"(cudaError {rc}) at E={e} M={m} N={n} d={d}")
+        raise RuntimeError(f"pairwise_l2_threshold {plan.route} kernel launch "
+                           f"failed (cudaError {rc}) at E={e} M={m} N={n} "
+                           f"d={d}")
     return d2, mask

@@ -21,6 +21,7 @@ from repro_torch.data import (brute_force_pairs,  # noqa: E402
                               clustered_vectors, epsilon_for_avg_neighbors)
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
@@ -57,6 +58,7 @@ def test_verify_kernel_matches_plain(cuda, e, m, n, d, dtype):
     d2k, mk = ops.verify_pairs_batch(u, v, eps)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["verify_pairs_batch"] == 1
+    _assert_verify_routes(verify.launch_plan(m, n, d).route, 1)
     d2r, mr = ref.pairwise_l2_threshold(u, v, ops.eps2_f32(eps))
     np.testing.assert_allclose(d2k.cpu().numpy(), d2r.cpu().numpy(),
                                **D2_TOL)
@@ -64,6 +66,102 @@ def test_verify_kernel_matches_plain(cuda, e, m, n, d, dtype):
     # the E = 1 launch gives the batched lane's bytes
     d2one, _ = ops.pairwise_l2_threshold(u[-1], v[-1], eps)
     assert torch.equal(d2one, d2k[-1])
+
+
+def _assert_verify_routes(route: str, n: int) -> None:
+    for r, counter in verify.ROUTE_COUNTERS.items():
+        assert ops.LAUNCHES[counter] == (n if r == route else 0), \
+            ops.LAUNCHES
+
+
+def _verify_inputs(cuda, e, m, n, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.randn(e, m, d, device=cuda, generator=g)
+    v = torch.randn(e, n, d, device=cuda, generator=g)
+    return u, v, float(np.sqrt(2.0 * d))  # about half of the pairs pass
+
+
+def _check_verify(d2k, mk, u, v, eps):
+    torch.cuda.synchronize()
+    d2r, mr = ref.pairwise_l2_threshold(u, v, ops.eps2_f32(eps))
+    np.testing.assert_allclose(d2k.cpu().numpy(), d2r.cpu().numpy(),
+                               **D2_TOL)
+    _check_mask(mk.view(torch.bool), mr, d2r, eps)
+
+
+@pytest.mark.parametrize("m,n", [(200, 150), (64, 300), (1, 1), (65, 63),
+                                 (130, 2), (37, 500), (300, 129)])
+@pytest.mark.parametrize("d", [4, 16, 96, 128, 960])
+def test_verify_tc_route_matches_plain(cuda, m, n, d):
+    """The tensor-core kernel at ragged M, N (and depth past the last
+    32-float chunk) through ``ops``, then at both tile shapes: the bytes of
+    an output never depend on the tile it landed in."""
+    u, v, eps = _verify_inputs(cuda, 2, m, n, d, seed=m * 7 + n + d)
+    ops.reset_launches()
+    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    _assert_verify_routes("tc", 1)
+    _check_verify(d2k, mk, u, v, eps)
+    eps2 = ops.eps2_f32(eps)
+    for block_m in (64, 128):
+        d2t, mt = verify.pairwise_l2_threshold_batched(
+            u, v, eps2, verify.LaunchPlan("tc", block_m))
+        assert torch.equal(d2t, d2k) and torch.equal(mt.view(torch.bool), mk)
+
+
+@pytest.mark.parametrize("m,n,d", [(200, 150, 33), (64, 300, 130),
+                                   (1, 1, 7), (130, 2, 2), (37, 500, 959)])
+def test_verify_simt_route_matches_plain(cuda, m, n, d):
+    u, v, eps = _verify_inputs(cuda, 2, m, n, d, seed=m + n + d)
+    ops.reset_launches()
+    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    _assert_verify_routes("simt", 1)
+    _check_verify(d2k, mk, u, v, eps)
+
+
+@pytest.mark.parametrize("m,n,d", [(2048, 2048, 128), (64, 2048, 128),
+                                   (100, 70, 33), (50, 90, 130)])
+def test_verify_lane_bytes_independent_of_e(cuda, m, n, d):
+    """Lane 0 of an E = 32 launch, lane 31 of it and the E = 1 launch of
+    each lane's operands give the same bytes, on either route (host- and
+    device-mode byte parity rests on it)."""
+    u, v, eps = _verify_inputs(cuda, 32, m, n, d, seed=m + d)
+    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    for lane in (0, 31):
+        d2one, mone = ops.pairwise_l2_threshold(u[lane], v[lane], eps)
+        assert torch.equal(d2one, d2k[lane])
+        assert torch.equal(mone, mk[lane])
+
+
+def test_verify_tc_route_takes_unaligned_views(cuda):
+    """TMA needs 16-byte aligned bases: a view 4 bytes into its storage is
+    copied first, and the result is that of the aligned copy."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    big = torch.randn(1 + 2 * 70 * 16, device=cuda, generator=g)
+    u = big[1:].view(2, 70, 16)
+    assert u.data_ptr() % 16 != 0
+    ops.reset_launches()
+    d2k, mk = ops.verify_pairs_batch(u, u, 4.0)
+    _assert_verify_routes("tc", 1)
+    d2c, mc = ops.verify_pairs_batch(u.clone(), u.clone(), 4.0)
+    assert torch.equal(d2k, d2c) and torch.equal(mk, mc)
+    _check_verify(d2k, mk, u, u, 4.0)
+
+
+def test_verify_pad_rows_stay_outside_eps(cuda):
+    """Rows padded at 1e15 (the executor's PAD_COORD): every pad x real
+    distance is huge and outside eps on the tensor-core route."""
+    u, v, eps = _verify_inputs(cuda, 2, 128, 128, 128, seed=5)
+    u[:, 100:] = 1e15
+    v[:, 90:] = 1e15
+    ops.reset_launches()
+    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    _assert_verify_routes("tc", 1)
+    torch.cuda.synchronize()
+    for pad in (d2k[:, 100:, :90], d2k[:, :100, 90:]):
+        assert (pad > 1e29).all()
+    assert not mk[:, 100:, :90].any() and not mk[:, :100, 90:].any()
+    _check_verify(d2k[:, :100, :90], mk[:, :100, :90], u[:, :100],
+                  v[:, :90], eps)
 
 
 @pytest.mark.parametrize("m,b,d", [(128, 128, 64), (100, 37, 96),
@@ -103,6 +201,11 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
         qd = index.query_batch(x[:20], compute_mode="device")
     assert all(ops.LAUNCHES[k] > 0 for k in JOIN_KERNELS), ops.LAUNCHES
     assert ops.LAUNCHES["flash_attention"] == 0
+    # every verify launch of the slice ran on the tensor cores
+    assert ops.LAUNCHES["verify_simt"] == 0
+    assert ops.LAUNCHES["verify_tc"] == (
+        ops.LAUNCHES["verify_pairs_batch"]
+        + ops.LAUNCHES["pairwise_l2_threshold"])
     assert np.array_equal(h.pairs, d.pairs)
     assert np.array_equal(h.distances, d.distances)
     assert recall(d.pairs, brute_force_pairs(x, eps)) >= 0.9

@@ -1,0 +1,224 @@
+"""The design of the tensor-core verify kernel (``csrc/pairwise_l2_sm90.cu``)
+checked on the CPU before the card: its 3×TF32 arithmetic, emulated in
+torch, against the JAX package's Pallas ``pairwise_l2_threshold_batched``
+in interpret mode, at ``tests/test_kernels.py``'s d² tolerance; and the
+route function ``kernels/pairwise_l2.py::launch_plan`` with the dispatch
+around it. The kernel itself is held against its plain version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+import inspect
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.executor import PAD_COORD  # noqa: E402
+from repro.data import (clustered_vectors,  # noqa: E402
+                        epsilon_for_avg_neighbors)
+from repro.kernels.pairwise_l2 import (  # noqa: E402
+    pairwise_l2_threshold_batched)
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
+
+D2_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py's d² tolerance
+MASK_BAND = 1e-2                     # mask may differ only this close to ε²
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 → TF32 (10 stored mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude, then clear them (a carry rounds into the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 → float32, rounded toward zero."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tc_emulation(a: torch.Tensor, b: torch.Tensor, eps2: float):
+    """The kernel's arithmetic on (E, M, D) × (E, N, D) float32: norms as
+    float32 FMAs in k order; a = a_hi + a_lo, b likewise, each half rounded
+    to TF32; per 8-deep k step the products a_lo·b_hi, a_hi·b_lo and
+    a_hi·b_hi, summed per 32-deep chunk into a fresh float32 partial (the
+    chunk's lo·hi and hi·lo products k step by k step, then its hi·hi
+    products) that is added to the total (round to nearest). The
+    model of a tensor-core step: the 8 TF32 products and their sum with
+    the partial exact (float64), then one rounding toward zero, since the
+    tensor cores truncate where float32 FMAs round to nearest."""
+    def norm(x):
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float32)
+        for k in range(x.shape[-1]):
+            xk = x[..., k].double()
+            acc = (acc.double() + xk * xk).float()
+        return acc
+
+    def split(x):
+        hi = tf32_rna(x)
+        return hi, tf32_rna(x - hi)
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[1])
+    for c0 in range(0, a.shape[-1], 32):
+        steps = range(c0, min(c0 + 32, a.shape[-1]), 8)
+        order = [(k0, x, y) for k0 in steps
+                 for x, y in ((a_lo, b_hi), (a_hi, b_lo))]
+        order += [(k0, a_hi, b_hi) for k0 in steps]
+        part = torch.zeros_like(acc)
+        for k0, x, y in order:
+            ks = slice(k0, k0 + 8)
+            p = x[..., ks].double() @ y[..., ks].double().transpose(1, 2)
+            part = round_toward_zero(part.double() + p)
+        acc = acc + part
+    d2 = torch.clamp_min((norm(a)[..., :, None] + norm(b)[..., None, :])
+                         - 2.0 * acc, 0.0)
+    return d2, d2 <= eps2
+
+
+def _jax_verify(a: np.ndarray, b: np.ndarray, eps2: float):
+    d2, mask = pairwise_l2_threshold_batched(a, b, eps2, interpret=True)
+    return np.asarray(d2), np.asarray(mask).astype(bool)
+
+
+def _check(d2, mask, d2_want, mask_want, eps2):
+    np.testing.assert_allclose(d2, d2_want, **D2_TOL)
+    dis = mask != mask_want
+    if dis.any():
+        assert np.abs(d2_want[dis] - eps2).max() < MASK_BAND
+
+
+def _data(kind: str, e: int, m: int, n: int, d: int, seed: int):
+    """(a (e, m, d), b (e, n, d), ε²) float32 of one kind."""
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":  # both sides from one dataset, ε for ~20 pairs
+        x = clustered_vectors(e * (m + n), d, seed=seed)
+        eps2 = float(np.float32(epsilon_for_avg_neighbors(x, 20) ** 2))
+        return x[:e * m].reshape(e, m, d), x[e * m:].reshape(e, n, d), eps2
+    if kind == "randn":
+        a, b = (rng.normal(size=(e, r, d)).astype(np.float32) for r in (m, n))
+    else:  # SIFT's scale: integer coordinates 0..255
+        a, b = (rng.integers(0, 256, size=(e, r, d)).astype(np.float32)
+                for r in (m, n))
+    # ε² near the median d² of the batch: about half of the pairs pass
+    d2 = ((a[:, :, None].astype(np.float64) - b[:, None]) ** 2).sum(-1)
+    return a, b, float(np.float32(np.median(d2)))
+
+
+@pytest.mark.parametrize("kind", ["randn", "clustered", "sift_ints"])
+@pytest.mark.parametrize("e,m,n,d", [(2, 128, 128, 128), (1, 256, 128, 96),
+                                     (3, 128, 256, 32)])
+def test_tc_arithmetic_matches_jax_pallas(kind, e, m, n, d):
+    a, b, eps2 = _data(kind, e, m, n, d, seed=m + n + d)
+    d2, mask = tc_emulation(torch.from_numpy(a), torch.from_numpy(b), eps2)
+    d2_want, mask_want = _jax_verify(a, b, eps2)
+    _check(d2.numpy(), mask.numpy(), d2_want, mask_want, eps2)
+    assert mask_want.any()
+    if kind == "sift_ints":  # integer data: every product and sum is exact
+        assert np.array_equal(d2.numpy(), d2_want)
+
+
+def test_tc_arithmetic_keeps_pad_rows_outside_eps():
+    """Slabs padded at PAD_COORD (1e15), as the executor pads a bucket to
+    its capacity: real × real matches JAX, and every pad × real distance
+    stays astronomically far outside ε in both."""
+    e, m, d, live_a, live_b = 2, 128, 128, 100, 77
+    x = clustered_vectors(e * m * 2, d, seed=3).reshape(2, e, m, d)
+    a, b = x[0].copy(), x[1].copy()
+    a[:, live_a:] = PAD_COORD
+    b[:, live_b:] = PAD_COORD
+    eps2 = float(np.float32(epsilon_for_avg_neighbors(
+        x.reshape(-1, d), 20) ** 2))
+    d2, mask = tc_emulation(torch.from_numpy(a), torch.from_numpy(b), eps2)
+    d2, mask = d2.numpy(), mask.numpy()
+    d2_want, mask_want = _jax_verify(a, b, eps2)
+    real = (slice(None), slice(0, live_a), slice(0, live_b))
+    _check(d2[real], mask[real], d2_want[real], mask_want[real], eps2)
+    for pad in ((slice(None), slice(live_a, None), slice(0, live_b)),
+                (slice(None), slice(0, live_a), slice(live_b, None))):
+        assert (d2[pad] > 1e29).all() and (d2_want[pad] > 1e29).all()
+        assert not mask[pad].any() and not mask_want[pad].any()
+        np.testing.assert_allclose(d2[pad], d2_want[pad], rtol=1e-4)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                    # TF32's ulp at 1
+    x = torch.tensor([one + ulp / 2,    # tie: away from zero
+                      -(one + ulp / 2),
+                      one + ulp / 2 - 2.0 ** -23,   # just below the tie
+                      one + 3 * ulp / 2,            # tie from an odd ulp
+                      2.0 - 2.0 ** -23,             # carries into 2
+                      1e15, 0.0, 255.0],
+                     dtype=torch.float32)
+    want = [one + ulp, -(one + ulp), one, one + 2 * ulp, 2.0,
+            float(np.float32(1e15)), 0.0, 255.0]
+    got = tf32_rna(x)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert got[:5].tolist() == want[:5]
+    assert got[6:].tolist() == want[6:]
+    assert abs(got[5].item() - want[5]) <= 2.0 ** -11 * want[5]
+
+
+def test_round_toward_zero():
+    tiny = 2.0 ** -30
+    x = torch.tensor([1 + tiny, -(1 + tiny), 1 - tiny, 3.0, 0.0, 1e30],
+                     dtype=torch.float64)
+    got = round_toward_zero(x).tolist()
+    below_one = float(np.nextafter(np.float32(1), np.float32(0)))
+    assert got[:5] == [1.0, -1.0, below_one, 3.0, 0.0]
+    assert abs(got[5]) <= 1e30
+
+
+@pytest.mark.parametrize("m,n,d,route,block_m", [
+    (2048, 2048, 128, "tc", 128),   # the batched verify of the main path
+    (64, 2048, 128, "tc", 64),      # the point queries' tile
+    (65, 2048, 128, "tc", 128),
+    (1, 1, 4, "tc", 64),
+    (300, 129, 960, "tc", 128),
+    (200, 150, 33, "simt", 128),
+    (64, 300, 130, "simt", 128),
+    (5, 5, 2, "simt", 128),
+])
+def test_launch_plan(m, n, d, route, block_m):
+    plan = verify.launch_plan(m, n, d)
+    assert (plan.route, plan.block_m) == (route, block_m)
+    assert plan.route in verify.ROUTE_COUNTERS
+
+
+def test_launch_plan_never_sees_e(monkeypatch):
+    """The route and tile come from (M, N, d) alone: the E = 1 launch and
+    every lane count of a batched launch take the same plan, so a lane's
+    bytes never depend on E; each launch counts under its route."""
+    assert list(inspect.signature(verify.launch_plan).parameters) == \
+        ["m", "n", "d"]
+    plans = []
+    monkeypatch.setattr(verify, "pairwise_l2_threshold_batched",
+                        lambda a, b, eps2, plan: plans.append(plan))
+    ops.reset_launches()
+    for e in (1, 2, 32):
+        for m, d in ((64, 128), (2048, 128), (100, 33)):
+            ops._launch_verify(torch.zeros(e, m, d), torch.zeros(e, 50, d),
+                               1.0)
+    assert plans[0:3] == plans[3:6] == plans[6:9]
+    assert [p.route for p in plans[:3]] == ["tc", "tc", "simt"]
+    assert ops.LAUNCHES["verify_tc"] == 6 and ops.LAUNCHES["verify_simt"] == 3
+    ops.reset_launches()
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_refused_launch_raises(monkeypatch, route):
+    """No fallback: a launch the library refuses raises, whatever the
+    route, and nothing is counted."""
+    lib = SimpleNamespace(pairwise_l2_sm90_launch=lambda *a: 1,
+                          pairwise_l2_threshold_launch=lambda *a: 1)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(verify.torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    a = torch.zeros(1, 8, 16)
+    with pytest.raises(RuntimeError, match=f"{route} kernel launch failed"):
+        verify.pairwise_l2_threshold_batched(a, a, 1.0,
+                                             verify.LaunchPlan(route))
