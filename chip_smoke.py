@@ -14,8 +14,10 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``DiskJoinIndex.build`` → ``self_join`` (device mode) →
    ``query_batch`` of 1,000 queries in host and device mode. The kernels'
    launch counts are zeroed just before and read just after; every kernel
-   must have launched, and every verify launch (batched and E = 1) must
-   have taken the tensor-core route (``pairwise_l2_sm90.cu``). Recall
+   must have launched, every verify launch (batched and E = 1) must have
+   taken the tensor-core route (``pairwise_l2_sm90.cu``), and every assign
+   launch of the build too (``bucket_assign_sm90.cu``); the build's
+   timings give the assign scan's share of it. Recall
    against brute force (float64, on the card) for 2,000 rows must reach
    0.88; query memberships of the two modes must agree except on
    ε-boundary pairs.
@@ -26,7 +28,12 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    CUDA-core route (``pairwise_l2.cu``) is checked and timed at the
    batched shape too, and both routes and the plain version are held
    against float64 on the same lanes (d² bias near ε², ε-pairs missed and
-   kept).
+   kept). Both assign routes (``bucket_assign_sm90.cu``,
+   ``bucket_assign.cu``) are checked and timed at one scan block of the
+   build (8,192 × 1,000 centers) and against 65,536 centers (the
+   reference's center-index crossover), beside the center index's own
+   matmul + argmin, and on near-ties (duplicated centers; centers moved
+   by a few ulps).
 4. Host/device byte parity of ``self_join`` at 100,000 × 128.
 5. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
@@ -69,10 +76,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
+from repro_torch.core import center_index  # noqa: E402
 from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
@@ -108,6 +117,10 @@ ATTN_TOL = {torch.bfloat16: 4e-3, torch.float32: 2e-4}
 VERIFY_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/pairwise_l2_sm90.cu",
     "simt": "src/repro_torch/kernels/csrc/pairwise_l2.cu"}
+ASSIGN_SOURCES = {
+    "tc": "src/repro_torch/kernels/csrc/bucket_assign_sm90.cu",
+    "simt": "src/repro_torch/kernels/csrc/bucket_assign.cu"}
+CROSSOVER_CENTERS = 65_536   # the reference's center-index crossover
 FLASH_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -270,6 +283,9 @@ def phase_main_path(workdir: str) -> dict:
     check(launches["verify_simt"] == 0
           and launches["verify_tc"] == verify_launches,
           f"a verify launch left the tensor-core route: {launches}")
+    check(launches["assign_simt"] == 0
+          and launches["assign_tc"] == launches["bucket_assign"],
+          f"an assign launch left the tensor-core route: {launches}")
 
     check_join_output(x, eps, res)
     t0 = time.perf_counter()
@@ -280,7 +296,9 @@ def phase_main_path(workdir: str) -> dict:
     members, boundary, found = check_query_agreement(x, Q, src, eps, q_host,
                                                      q_dev)
     pipe = res.io_stats["pipeline"]
-    log(f"[main] build timings {index.build_timings}")
+    bt = index.build_timings
+    log(f"[main] build timings {bt}; the assign scan {bt['assign']:.3f} s "
+        f"of the {t['build']:.3f} s build ({bt['assign'] / t['build']:.3f})")
     log(f"[main] buckets {index.num_buckets} capacity "
         f"{index.bucket_capacity}; pairs {res.pairs.shape[0]} "
         f"distance computations {res.num_distance_computations} "
@@ -312,7 +330,7 @@ def phase_main_path(workdir: str) -> dict:
                   E=cfg.verify_batch, Q=Q, q_rows=q_rows,
                   centers=sample_centers(store, n // 1000, cfg.seed,
                                          cfg.block_rows),
-                  block_rows=cfg.block_rows, index=index)
+                  block_rows=cfg.block_rows, index=index, store=store)
     return dict(launches=launches, shapes=shapes, recall=rec)
 
 
@@ -422,6 +440,102 @@ def verify_bound(e: int, m: int, n: int, d: int) -> tuple[float, str]:
                  flops_tf32=3 * 2.0 * e * m * n * d)
 
 
+def assign_bound(m: int, b: int, d: int) -> tuple[float, str]:
+    """Least time of float32-accurate assign on the card: its products as
+    three TF32 tensor-core passes (the 3×TF32 split), or X and the centers
+    read once and (d², index) written once."""
+    return bound(0.0, 4.0 * (m + b) * d + 8.0 * m,
+                 flops_tf32=3 * 2.0 * m * b * d)
+
+
+def assign_row(xb: torch.Tensor, c: torch.Tensor) -> dict:
+    """Both assign routes at (M, B, d) against the plain version: argmin
+    equal, d² within tolerance, the tc route's bytes against simt's;
+    device times beside the plain version, the center index's own
+    matmul + argmin (context, not a yardstick) and the bound."""
+    m, d = xb.shape
+    b = c.shape[0]
+    plan = assign.launch_plan(m, b, d)
+    check(plan.route == "tc", f"assign ({m}, {b}, {d}) routed to {plan}")
+    simt = assign.LaunchPlan("simt")
+    dk, ik = ops.bucket_assign(xb, c)
+    ds, is_ = assign.bucket_assign(xb, c, simt)
+    dr, ir = ref.bucket_assign(xb, c)
+    torch.cuda.synchronize()
+    for route, (dv, iv) in (("tc", (dk, ik)), ("simt", (ds, is_))):
+        check(torch.equal(iv, ir), f"{route} argmin differs from plain on "
+              f"{int((iv != ir).sum().item())} rows at ({m}, {b}, {d})")
+        over = (dv - dr).abs() - (D2_ATOL + D2_RTOL * dr.abs())
+        check(over.max().item() <= 0, f"{route} assign d2 outside tolerance")
+    err = (dk - dr).abs().max().item()
+    err_simt = (ds - dr).abs().max().item()
+    differ = int(((ik != is_) | (dk != ds)).sum().item())
+    del dr, ir
+    many = b > 10_000   # one call takes milliseconds: fewer in a graph
+    ms = graph_ms(lambda: ops.bucket_assign(xb, c))
+    simt_ms = graph_ms(lambda: assign.bucket_assign(xb, c, simt),
+                       reps=5 if many else 20)
+    eager = cuda_ms(lambda: ops.bucket_assign(xb, c), reps=10 if many else 50)
+    plain = graph_ms(lambda: ref.bucket_assign(xb, c), reps=2 if many else 20)
+    csq = torch.sum(c * c, dim=1)
+    index_ms = graph_ms(lambda: center_index._nearest(xb, c, csq),
+                        reps=2 if many else 20)
+    bms, by = assign_bound(m, b, d)
+    f32_bms, _ = bound(2.0 * m * b * d, 4.0 * (m + b) * d + 8.0 * m)
+    log(f"[kernel] bucket_assign ({m}, {b}, {d}): route tc (block "
+        f"{plan.block_m}, {plan.splits} splits); argmin equal to plain on "
+        f"both routes, max abs err tc {err!r}, simt {err_simt!r}; tc bytes "
+        f"differ from simt on {differ} rows; device ms tc {ms:.4f}, simt "
+        f"{simt_ms:.4f} (tc {simt_ms / ms:.2f}x faster), plain {plain:.4f}, "
+        f"center index matmul + argmin {index_ms:.4f} (context); eager tc "
+        f"{eager:.4f}; bound {bms:.4f} ({by}; float32 CUDA-core pricing "
+        f"{f32_bms:.4f}), share {bms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager,
+                simt_ms=simt_ms, simt_max_abs_err=err_simt,
+                simt_bytes_differ=differ, f32_bound_ms=f32_bms,
+                center_index_ms=index_ms, splits=plan.splits,
+                shape=[m, b, d])
+
+
+def assign_near_ties(xb: torch.Tensor, c: torch.Tensor) -> dict:
+    """The tc route on near-ties, rows = 64 centers then the scan block.
+    Centers twice (split sub-buckets share theirs): argmin equal to the
+    plain version's, the lowest index wins. Each center beside a copy moved
+    by 3 ulps: the result is the CUDA-core kernel's, byte for byte (both
+    decide in float32 FMAs); a row that is a center gets it, at d² 0; where
+    the plain version (another float32 order) picks the other of a pair,
+    the pair's exact d² must lie within float32 rounding of each other."""
+    rows = torch.cat([c[:64], xb[: xb.shape[0] - 64]])
+    own = torch.arange(64, device=rows.device, dtype=torch.int32)
+    dups = torch.cat([c, c])
+    dk, ik = ops.bucket_assign(rows, dups)
+    dr, ir = ref.bucket_assign(rows, dups)
+    check(torch.equal(ik, ir), "near-ties: argmin differs from plain on "
+          f"duplicated centers ({int((ik != ir).sum().item())} rows)")
+    check(torch.equal(ik[:64], own), "near-ties: a duplicated center "
+          "did not go to the lower index")
+    moved = c
+    for _ in range(3):
+        moved = torch.nextafter(moved, torch.full_like(moved, float("inf")))
+    pairs = torch.cat([c, moved])
+    dk, ik = ops.bucket_assign(rows, pairs)
+    ds, is_ = assign.bucket_assign(rows, pairs, assign.LaunchPlan("simt"))
+    _, ir = ref.bucket_assign(rows, pairs)
+    check(torch.equal(ik, is_) and torch.equal(dk, ds),
+          "near-ties: tc bytes differ from simt on moved centers")
+    check(torch.equal(ik[:64], own) and (dk[:64] == 0).all().item(),
+          "near-ties: a row that is a center did not get it at d2 0")
+    differ = ik != ir
+    r64 = rows[differ].double()
+    gap = ((r64 - pairs[ik[differ].long()].double()) ** 2).sum(1) \
+        - ((r64 - pairs[ir[differ].long()].double()) ** 2).sum(1)
+    check((gap.abs() <= 2.0 ** -20 * (r64 * r64).sum(1)).all().item(),
+          "near-ties: tc and plain differ on a row that is no float32 tie")
+    return dict(rows=rows.shape[0], centers=pairs.shape[0],
+                plain_differs=int(differ.sum().item()))
+
+
 def phase_kernels(main: dict) -> list[dict]:
     s = main["shapes"]
     eps, cap, E, d = s["eps"], s["cap"], s["E"], DIM
@@ -515,31 +629,33 @@ def phase_kernels(main: dict) -> list[dict]:
         shape=[qr, cap, d], ok=True))
     del u, v, d2a, d2b, d2t
 
-    # assign: one scan-2 block against the sampled centers
+    # assign: one scan-2 block against the sampled centers, then against
+    # the reference's center-index crossover count, on both routes
     xb = torch.from_numpy(s["x"][: s["block_rows"]]).cuda()
     c = torch.from_numpy(s["centers"]).cuda()
     m, b = xb.shape[0], c.shape[0]
-    dk, ik = ops.bucket_assign(xb, c)
-    dr, ir = ref.bucket_assign(xb, c)
-    torch.cuda.synchronize()
-    check(torch.equal(ik, ir), f"argmin differs on "
-          f"{int((ik != ir).sum().item())} rows")
-    over = (dk - dr).abs() - (D2_ATOL + D2_RTOL * dr.abs())
-    check(over.max().item() <= 0, "assign d2 outside tolerance")
-    err2 = (dk - dr).abs().max().item()
-    ms = graph_ms(lambda: ops.bucket_assign(xb, c))
-    eager = cuda_ms(lambda: ops.bucket_assign(xb, c), reps=50)
-    plain = graph_ms(lambda: ref.bucket_assign(xb, c))
-    bms, by = bound(2.0 * m * b * d, 4.0 * (m + b) * d + 8.0 * m)
-    log(f"[kernel] bucket_assign ({m}, {b}, {d}): argmin equal, max abs err "
-        f"{err2!r}")
+    row = assign_row(xb, c)
+    c_big = torch.from_numpy(sample_centers(
+        s["store"], CROSSOVER_CENTERS, 1, s["block_rows"])).cuda()
+    big = assign_row(xb, c_big)
+    del c_big
+    ties = assign_near_ties(xb, c)
+    log(f"[kernel] bucket_assign near-ties ({m} rows incl. 64 centers): "
+        f"duplicated centers {b} x 2: argmin equal to plain, lowest index "
+        f"wins; centers moved by 3 ulps: tc bytes == simt bytes, rows that "
+        f"are centers get their own index at d2 0, plain's argmin differs "
+        f"on {ties['plain_differs']} rows, each a tie within float32 "
+        f"rounding (exact d2 gap <= 2^-20 |x|^2)")
     out.append(dict(
-        name="bucket_assign", route="cuda",
-        source="src/repro_torch/kernels/csrc/bucket_assign.cu",
+        name="bucket_assign", route="cuda", source=ASSIGN_SOURCES["tc"],
         replaces="src/repro/kernels/bucket_assign.py:49",
-        launches=main["launches"]["bucket_assign"], max_abs_err=err2,
-        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        eager_ms=eager, shape=[m, b, d], ok=True))
+        launches=main["launches"]["bucket_assign"], **row,
+        kernel_route="tc", simt_source=ASSIGN_SOURCES["simt"],
+        crossover={k: big[k] for k in (
+            "shape", "max_abs_err", "ms", "simt_ms", "plain_ms", "bound_ms",
+            "bound_by", "f32_bound_ms", "center_index_ms", "splits",
+            "simt_bytes_differ", "simt_max_abs_err")},
+        near_ties=ties, ok=True))
     for k in out:
         log(f"[kernel] {k['name']}: kernel {k['ms']:.4f} ms (eager "
             f"{k['eager_ms']:.4f}), plain "

@@ -4,9 +4,11 @@ Three sequential dataset scans, all block-granular (no read amplification):
 
   1. *Sample*   — stream X, collect the pre-drawn sample ids as centers.
   2. *Assign*   — stream X in blocks; nearest-center search per block via the
-                  ``bucket_assign`` kernel (its plain version on the
-                  CPU); record assignment, per-bucket counts
-                  and radii (only counters stay in memory).
+                  center index: up to its crossover (65,536 centers) the
+                  exact ``bucket_assign`` kernel (its plain version on
+                  the CPU), above it the approximate IVF index; record
+                  assignment, per-bucket counts and radii (only counters
+                  stay in memory).
   3. *Write*    — stream X again, appending each vector to its bucket's
                   buffered extent in the reorganized store (per-bucket
                   write buffers avoid write amplification).
@@ -26,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.center_index import (BruteForceCenterIndex,
+                                           make_center_index)
 from repro_torch.core.types import BucketMeta, JoinConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.store.vector_store import BucketedVectorStore, FlatVectorStore
@@ -57,17 +61,26 @@ def assign_blocks(store: FlatVectorStore, centers: np.ndarray,
                   ) -> tuple[np.ndarray, np.ndarray]:
     """Scan 2: nearest-center assignment → (assignment, per-vector d²).
 
-    Every block goes through ``kops.bucket_assign``, which dispatches by
-    the device: the CUDA kernel on the card, its plain version on the
-    CPU. Both are exact at any number of centers."""
+    The center index decides, as in the JAX package: where
+    ``make_center_index`` returns the exact brute-force index (up to its
+    crossover of 65,536 centers), every block goes through
+    ``kops.bucket_assign``, which dispatches by the device: the CUDA
+    kernel on the card, its plain version on the CPU. Above the crossover
+    the IVF index's ``assign`` serves the blocks, approximate as the
+    reference's is (it probes ``nprobe`` cells)."""
     assignment = np.empty(store.num_vectors, dtype=np.int64)
     dist_sq = np.empty(store.num_vectors, dtype=np.float32)
-    centers_dev = torch.from_numpy(np.asarray(centers, np.float32)).to(device)
+    index = make_center_index(centers, device=device)
+    exact = isinstance(index, BruteForceCenterIndex)
     for start, block in store.iter_blocks(block_rows):
-        x = torch.from_numpy(block.astype(np.float32)).to(device)
-        d2, idx = kops.bucket_assign(x, centers_dev)
-        assignment[start:start + block.shape[0]] = idx.cpu().numpy()
-        dist_sq[start:start + block.shape[0]] = d2.cpu().numpy()
+        if exact:
+            x = torch.from_numpy(block.astype(np.float32)).to(device)
+            d2, idx = kops.bucket_assign(x, index._centers_dev)
+            d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
+        else:
+            d2, idx = index.assign(block.astype(np.float32))
+        assignment[start:start + block.shape[0]] = idx
+        dist_sq[start:start + block.shape[0]] = d2
     return assignment, dist_sq
 
 

@@ -110,6 +110,9 @@ def load() -> ctypes.CDLL:
         lib.bucket_assign_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.bucket_assign_launch.restype = i32
+        lib.bucket_assign_sm90_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.bucket_assign_sm90_launch.restype = i32
         strides = ctypes.POINTER(ctypes.c_longlong)
         shape = [i32] * 9  # B, Sq, T, H, Hkv, D, causal, window, q_offset
         lib.flash_simt_launch.argtypes = [

@@ -1,4 +1,7 @@
-// Fused nearest-center assignment: scan 2 of bucketization.
+// Fused nearest-center assignment on the CUDA cores: scan 2 of
+// bucketization where rows are not 16-byte aligned (D % 4 != 0;
+// kernels/bucket_assign.py::launch_plan). bucket_assign_sm90.cu serves the
+// rest, and decides its winners in this kernel's float32 arithmetic.
 //
 // Replaces: src/repro/kernels/bucket_assign.py, bucket_assign (body
 // _assign_kernel).

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (flash_prefill_sm90.cu, pairwise_l2_sm90.cu): mbarriers, TMA tile loads,
+// (flash_prefill_sm90.cu and, through l2_sm90.cuh, pairwise_l2_sm90.cu and
+// bucket_assign_sm90.cu): mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and fences, and the host-side lookup of
 // the driver's tensor-map encoder.
 #pragma once

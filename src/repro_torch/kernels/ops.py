@@ -27,11 +27,14 @@ from repro_torch.kernels import pairwise_l2 as _pairwise_kernel
 from repro_torch.kernels import ref
 
 # per wrapper; the route counters say which kernel served each call: the
-# verify routes count the launches of both distance wrappers, the flash
-# routes the calls of the attention region (one a layer)
+# verify routes count the launches of both distance wrappers, the assign
+# routes those of ``bucket_assign``, the flash routes the calls of the
+# attention region (one a layer)
 LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             **{c: 0 for c in _pairwise_kernel.ROUTE_COUNTERS.values()},
-            "bucket_assign": 0, "flash_attention": 0,
+            "bucket_assign": 0,
+            **{c: 0 for c in _assign_kernel.ROUTE_COUNTERS.values()},
+            "flash_attention": 0,
             **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()}}
 
 
@@ -142,8 +145,17 @@ def bucket_assign(x, centers):
     if x.shape[0] == 0:
         return (torch.empty(0, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev))
-    out = _assign_kernel.bucket_assign(x, centers)
+    return _launch_assign(x, centers)
+
+
+def _launch_assign(x: torch.Tensor, centers: torch.Tensor):
+    """Launch the route ``launch_plan`` picks for (M, d) × (B, d) operands
+    and count the call, once in all and once under its route."""
+    plan = _assign_kernel.launch_plan(x.shape[0], centers.shape[0],
+                                      x.shape[1])
+    out = _assign_kernel.bucket_assign(x, centers, plan)
     LAUNCHES["bucket_assign"] += 1
+    LAUNCHES[_assign_kernel.ROUTE_COUNTERS[plan.route]] += 1
     return out
 
 

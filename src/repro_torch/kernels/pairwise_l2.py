@@ -43,7 +43,7 @@ def launch_plan(m: int, n: int, d: int) -> LaunchPlan:
     return LaunchPlan("simt")
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
+def aligned(x: torch.Tensor) -> torch.Tensor:
     """x itself, or a fresh copy where its base address is not 16-byte
     aligned (a view into a larger tensor)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
@@ -62,7 +62,7 @@ def pairwise_l2_threshold_batched(a: torch.Tensor, b: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     if plan.route == "tc":
-        a, b = _aligned(a), _aligned(b)
+        a, b = aligned(a), aligned(b)
         rc = lib.pairwise_l2_sm90_launch(
             a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),
             e, m, n, d, eps2, plan.block_m, a.device.index, stream)

@@ -1,5 +1,8 @@
 """The port's center index, bucket graph and bucketization
 (``repro_torch.core``) against the JAX package's on the same data."""
+import functools
+import importlib
+
 import numpy as np
 import pytest
 
@@ -20,6 +23,9 @@ from repro_torch.core.types import JoinConfig  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
 CPU = torch.device("cpu")
+# the modules (each package's ``core`` exports a function of the same name)
+jbucketize_mod = importlib.import_module("repro.core.bucketize")
+tbucketize_mod = importlib.import_module("repro_torch.core.bucketize")
 
 
 def _points(seed, n, b, d):
@@ -104,6 +110,30 @@ def test_bucketize_matches_jax(small_dataset, tmp_path, use_pallas):
         with open(str(tmp_path / "tb") + suffix, "rb") as f, \
                 open(str(tmp_path / "jb") + suffix, "rb") as g:
             assert f.read() == g.read(), suffix
+
+
+@pytest.mark.parametrize("n_centers,ivf", [(150, True), (80, False)])
+def test_assign_scan_follows_center_index_crossover(
+        tmp_path, monkeypatch, n_centers, ivf):
+    """Scan 2 takes the center index the reference takes: with the
+    crossover lowered to 100 centers in both packages, 150 centers go
+    through the (approximate) IVF index in both, 80 through the exact
+    path; the assignments are equal either way. (Unclustered data, so that
+    the IVF index's probes miss some rows' nearest center.)"""
+    x, _ = _points(4, 1500, 1, 32)
+    for mod, ci in ((jbucketize_mod, jci), (tbucketize_mod, tci)):
+        monkeypatch.setattr(mod, "make_center_index", functools.partial(
+            ci.make_center_index, exact_threshold=100))
+    jstore = JFlat.from_array(str(tmp_path / "j.bin"), x)
+    tstore = FlatVectorStore.from_array(str(tmp_path / "t.bin"), x)
+    centers = sample_centers(tstore, n_centers, 0, 512)
+    ja, jd = jbucketize_mod.assign_blocks(jstore, centers, 512)
+    ta, td = tbucketize_mod.assign_blocks(tstore, centers, 512, CPU)
+    assert np.array_equal(ta, ja)
+    np.testing.assert_allclose(td, jd, rtol=1e-4, atol=1e-3)
+    _, nearest = tci.BruteForceCenterIndex(centers, CPU).assign(x)
+    # the IVF index probes 8 of its 12 cells: some rows miss their nearest
+    assert (ta != nearest).any() if ivf else np.array_equal(ta, nearest)
 
 
 def test_bucket_graph_matches_jax(small_dataset, tmp_path):

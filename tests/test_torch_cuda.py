@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig, recall  # noqa: E402
 from repro_torch.data import (brute_force_pairs,  # noqa: E402
                               clustered_vectors, epsilon_for_avg_neighbors)
+from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
@@ -164,20 +165,122 @@ def test_verify_pad_rows_stay_outside_eps(cuda):
                   v[:, :90], eps)
 
 
+def _assert_assign_routes(route: str, n: int) -> None:
+    for r, counter in assign.ROUTE_COUNTERS.items():
+        assert ops.LAUNCHES[counter] == (n if r == route else 0), \
+            ops.LAUNCHES
+
+
+def _assign(route: str, x, c):
+    """``route``'s kernel on (M, d) x (B, d): through ``ops`` (counted under
+    its route) where ``launch_plan`` gives that route, else directly."""
+    if assign.launch_plan(x.shape[0], c.shape[0], x.shape[1]).route == route:
+        return ops.bucket_assign(x, c)
+    return assign.bucket_assign(x.contiguous(), c.contiguous(),
+                                assign.LaunchPlan(route))
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
 @pytest.mark.parametrize("m,b,d", [(128, 128, 64), (100, 37, 96),
                                    (256, 130, 128), (5, 3, 16),
-                                   (8192, 1000, 128)])
-def test_assign_kernel_matches_plain(cuda, m, b, d):
+                                   (8192, 1000, 128), (8192, 65536, 128)])
+def test_assign_kernel_matches_plain(cuda, route, m, b, d):
     g = torch.Generator(device=cuda).manual_seed(m + b)
     x = torch.randn(m, d, device=cuda, generator=g)
     c = torch.randn(b, d, device=cuda, generator=g)
-    dk, ik = ops.bucket_assign(x, c)
+    ops.reset_launches()
+    dk, ik = _assign(route, x, c)
+    torch.cuda.synchronize()
+    _assert_assign_routes("tc", 1 if route == "tc" else 0)
     dr, ir = ref.bucket_assign(x, c)
     assert torch.equal(ik, ir)
     np.testing.assert_allclose(dk.cpu().numpy(), dr.cpu().numpy(), **D2_TOL)
+    del dr, ir
     # ties (duplicated centers) go to the lowest index
-    _, it = ops.bucket_assign(c[:7], torch.cat([c, c]))
+    _, it = _assign(route, c[:7], torch.cat([c, c]))
     assert it.tolist() == list(range(min(7, b)))
+
+
+@pytest.mark.parametrize("m,b,d", [(100, 37, 97), (64, 300, 130),
+                                   (1, 1, 7), (300, 129, 2)])
+def test_assign_simt_route_matches_plain(cuda, m, b, d):
+    g = torch.Generator(device=cuda).manual_seed(m + b + d)
+    x = torch.randn(m, d, device=cuda, generator=g)
+    c = torch.randn(b, d, device=cuda, generator=g)
+    ops.reset_launches()
+    dk, ik = ops.bucket_assign(x, c)
+    _assert_assign_routes("simt", 1)
+    dr, ir = ref.bucket_assign(x, c)
+    assert torch.equal(ik, ir)
+    np.testing.assert_allclose(dk.cpu().numpy(), dr.cpu().numpy(), **D2_TOL)
+
+
+@pytest.mark.parametrize("m,b,d", [(128, 128, 64), (100, 37, 96),
+                                   (256, 130, 128), (1, 1, 4), (64, 1000, 96),
+                                   (8192, 1000, 128)])
+def test_assign_tc_route_gives_simt_bytes(cuda, m, b, d):
+    """The tensor-core route decides in float32 FMAs: its (mind2, idx) are
+    the CUDA-core kernel's, byte for byte, at every split count."""
+    g = torch.Generator(device=cuda).manual_seed(m * 3 + b)
+    x = torch.randn(m, d, device=cuda, generator=g)
+    c = torch.randn(b, d, device=cuda, generator=g)
+    ds, is_ = assign.bucket_assign(x, c, assign.LaunchPlan("simt"))
+    plan = assign.launch_plan(m, b, d)
+    tiles = -(-b // plan.block_m)
+    for splits in sorted({1, 2, plan.splits, tiles}):
+        dt, it = assign.bucket_assign(
+            x, c, assign.LaunchPlan("tc", plan.block_m, min(splits, tiles)))
+        assert torch.equal(it, is_) and torch.equal(dt, ds)
+
+
+def _near_tie_centers(cuda, seed):
+    """(rows, centers): 300 centers, then each again (exact duplicates:
+    split sub-buckets share theirs) and each moved by 3 ulps in every
+    coordinate; the rows are 64 of the centers themselves and 192 points
+    near a center, each of whose near-ties is a pair."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    base = torch.randn(300, 128, device=cuda, generator=g)
+    moved = base
+    for _ in range(3):
+        moved = torch.nextafter(moved, torch.full_like(moved, float("inf")))
+    near = base[torch.randint(0, 300, (192,), device=cuda, generator=g)]
+    near = near + 1e-3 * torch.randn(near.shape, device=cuda, generator=g)
+    return torch.cat([base[:64], near]), base, moved
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_assign_near_ties(cuda, route):
+    """Duplicated centers: the lowest index wins, as in the plain version.
+    Centers moved by a few ulps: the tensor-core route gives the CUDA-core
+    kernel's bytes, and a row that is a center gets that center (float32
+    FMAs give it d² = 0 exactly)."""
+    x, base, moved = _near_tie_centers(cuda, seed=11)
+    dups = torch.cat([base, base])
+    ops.reset_launches()
+    dk, ik = _assign(route, x, dups)
+    dr, ir = ref.bucket_assign(x, dups)
+    _assert_assign_routes("tc", 1 if route == "tc" else 0)
+    assert torch.equal(ik, ir)
+    assert ik[:64].tolist() == list(range(64))
+    np.testing.assert_allclose(dk.cpu().numpy(), dr.cpu().numpy(), **D2_TOL)
+    pairs = torch.cat([base, moved])
+    dk, ik = _assign(route, x, pairs)
+    ds, is_ = assign.bucket_assign(x, pairs, assign.LaunchPlan("simt"))
+    assert torch.equal(ik, is_) and torch.equal(dk, ds)
+    assert ik[:64].tolist() == list(range(64))
+    assert (dk[:64] == 0).all()
+
+
+def test_assign_tc_route_takes_unaligned_views(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    big = torch.randn(1 + 200 * 16, device=cuda, generator=g)
+    x = big[1:].view(200, 16)
+    assert x.data_ptr() % 16 != 0
+    ops.reset_launches()
+    dk, ik = ops.bucket_assign(x, x[:50])
+    _assert_assign_routes("tc", 1)
+    dc, ic = ops.bucket_assign(x.clone(), x[:50].clone())
+    assert torch.equal(dk, dc) and torch.equal(ik, ic)
 
 
 def test_operands_on_two_devices_raise(cuda):
@@ -201,7 +304,9 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
         qd = index.query_batch(x[:20], compute_mode="device")
     assert all(ops.LAUNCHES[k] > 0 for k in JOIN_KERNELS), ops.LAUNCHES
     assert ops.LAUNCHES["flash_attention"] == 0
-    # every verify launch of the slice ran on the tensor cores
+    # every verify and assign launch of the slice ran on the tensor cores
+    assert ops.LAUNCHES["assign_simt"] == 0
+    assert ops.LAUNCHES["assign_tc"] == ops.LAUNCHES["bucket_assign"]
     assert ops.LAUNCHES["verify_simt"] == 0
     assert ops.LAUNCHES["verify_tc"] == (
         ops.LAUNCHES["verify_pairs_batch"]

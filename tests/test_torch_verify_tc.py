@@ -20,63 +20,11 @@ from repro.kernels.pairwise_l2 import (  # noqa: E402
     pairwise_l2_threshold_batched)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
+from tc_emulation import (round_toward_zero, tc_emulation,  # noqa: E402
+                          tf32_rna)
 
 D2_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py's d² tolerance
 MASK_BAND = 1e-2                     # mask may differ only this close to ε²
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """float32 → TF32 (10 stored mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
-    the magnitude, then clear them (a carry rounds into the exponent)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
-    """float64 → float32, rounded toward zero."""
-    f = x.float()
-    over = f.double().abs() > x.abs()
-    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def tc_emulation(a: torch.Tensor, b: torch.Tensor, eps2: float):
-    """The kernel's arithmetic on (E, M, D) × (E, N, D) float32: norms as
-    float32 FMAs in k order; a = a_hi + a_lo, b likewise, each half rounded
-    to TF32; per 8-deep k step the products a_lo·b_hi, a_hi·b_lo and
-    a_hi·b_hi, summed per 32-deep chunk into a fresh float32 partial (the
-    chunk's lo·hi and hi·lo products k step by k step, then its hi·hi
-    products) that is added to the total (round to nearest). The
-    model of a tensor-core step: the 8 TF32 products and their sum with
-    the partial exact (float64), then one rounding toward zero, since the
-    tensor cores truncate where float32 FMAs round to nearest."""
-    def norm(x):
-        acc = torch.zeros(x.shape[:-1], dtype=torch.float32)
-        for k in range(x.shape[-1]):
-            xk = x[..., k].double()
-            acc = (acc.double() + xk * xk).float()
-        return acc
-
-    def split(x):
-        hi = tf32_rna(x)
-        return hi, tf32_rna(x - hi)
-
-    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
-    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[1])
-    for c0 in range(0, a.shape[-1], 32):
-        steps = range(c0, min(c0 + 32, a.shape[-1]), 8)
-        order = [(k0, x, y) for k0 in steps
-                 for x, y in ((a_lo, b_hi), (a_hi, b_lo))]
-        order += [(k0, a_hi, b_hi) for k0 in steps]
-        part = torch.zeros_like(acc)
-        for k0, x, y in order:
-            ks = slice(k0, k0 + 8)
-            p = x[..., ks].double() @ y[..., ks].double().transpose(1, 2)
-            part = round_toward_zero(part.double() + p)
-        acc = acc + part
-    d2 = torch.clamp_min((norm(a)[..., :, None] + norm(b)[..., None, :])
-                         - 2.0 * acc, 0.0)
-    return d2, d2 <= eps2
 
 
 def _jax_verify(a: np.ndarray, b: np.ndarray, eps2: float):
