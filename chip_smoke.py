@@ -34,8 +34,30 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    reference's center-index crossover), beside the center index's own
    matmul + argmin, and on near-ties (duplicated centers; centers moved
    by a few ulps).
-4. Host/device byte parity of ``self_join`` at 100,000 × 128.
-5. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
+4. ``[io]``, on the main path's 1M index (graph and node order cached):
+   ``self_join`` with prefetch I/O (``io_mode="prefetch"``,
+   ``io_batch_reads``), then with the planner (prefetch, ``plan_mode="on"``,
+   ``compute_mode="auto"``): both byte-identical to the main path's sync
+   join (pairs and distances), ``execute``/``io_wait``/``compute`` and the
+   prefetcher's counters logged beside the sync join's, the cost model and
+   the plan (routes, ``pair_cap``, verify batches, compaction overflows,
+   which must be 0). ``query_batch`` of the 1,000 queries with prefetch and
+   the planner in host and device mode: the sync waves' memberships but
+   for ε-boundary pairs. A cross-join against a second corpus of 100,000
+   near-duplicates (rows of the data + N(0, 1e-3)), built striped over 4
+   devices with coalescing and a spatial layout: sync and prefetch
+   byte-identical, recall against float64 ≥ 0.88 on 2,000 rows of the
+   second side. Every verify launch of each path (counts zeroed just
+   before it) must take the tensor-core route. Then the planner's CUDA
+   coefficients (copy rates, each verify engine's flush at the verify
+   shape and its fixed cost; ``plan/cost_model.py``) and the IVF center
+   index's assign above the crossover (8,192 rows × 65,537 centers) on the
+   card against the CPU.
+5. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
+   sync and prefetch I/O, and a second build striped over 4 devices with
+   coalescing; every join (device mode in each I/O × striping corner)
+   gives the plain sync host join's bytes.
+6. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
    max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
    32 new tokens each, no EOS: two waves), then ``prefill`` runs on
@@ -74,6 +96,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
+                                  HostVerifyEngine)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core import center_index  # noqa: E402
@@ -85,6 +109,7 @@ from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.plan import cost_model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
@@ -100,6 +125,7 @@ N_MAIN = 1_000_000      # SIFT1M's 1,000,000 x 128
 N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
+N_CROSS = 100_000       # the cross-join's second side: near-duplicates
 JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
                 "bucket_assign")
 LM_ARCH = "qwen3-0.6b"
@@ -331,7 +357,8 @@ def phase_main_path(workdir: str) -> dict:
                   centers=sample_centers(store, n // 1000, cfg.seed,
                                          cfg.block_rows),
                   block_rows=cfg.block_rows, index=index, store=store)
-    return dict(launches=launches, shapes=shapes, recall=rec)
+    return dict(launches=launches, shapes=shapes, recall=rec, res=res,
+                q_host=q_host, q_dev=q_dev, src=src, cfg=cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +718,378 @@ def phase_profile(index) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: host/device byte parity at 100k
+# phase 4: the I/O pipeline, the planner, the cross-join (1M index)
+# ---------------------------------------------------------------------------
+def verify_launches_all_tc(launches: dict, what: str) -> int:
+    n = launches["verify_pairs_batch"] + launches["pairwise_l2_threshold"]
+    check(n > 0, f"{what}: no verify launch")
+    check(launches["verify_simt"] == 0 and launches["verify_tc"] == n,
+          f"{what}: a verify launch left the tensor-core route: {launches}")
+    return n
+
+
+def assign_launches_all_tc(launches: dict, what: str) -> None:
+    check(launches["assign_simt"] == 0
+          and launches["assign_tc"] == launches["bucket_assign"] > 0,
+          f"{what}: an assign launch left the tensor cores: {launches}")
+
+
+def check_identical(a, b, what: str) -> None:
+    check(np.array_equal(a.pairs, b.pairs), f"{what}: pairs differ")
+    check(np.array_equal(a.distances, b.distances),
+          f"{what}: distances differ")
+
+
+def pipeline_line(r) -> dict:
+    p = r.io_stats["pipeline"]
+    out = {k: round(r.timings[k], 4) for k in ("execute", "io_wait",
+                                                "compute")}
+    out.update({k: p[k] for k in (
+        "loads", "stalls", "flush_on_stall", "blocked_acquires",
+        "max_queue_depth", "max_slabs_in_use", "pool_slabs",
+        "batched_submissions", "coalesced_reads", "coalesced_buckets",
+        "device_compact_overflows")})
+    out["read_s"] = round(p["read_s"], 4)
+    out["overlap_efficiency"] = round(p["overlap_efficiency"], 4)
+    return out
+
+
+class _Slabs:
+    """A verify engine's cache surface over fixed host slabs."""
+
+    def __init__(self, slabs: np.ndarray):
+        self.slabs = slabs
+        self.ids = np.arange(slabs.shape[1], dtype=np.int64)
+
+    def checkout(self, b: int):
+        return (self.slabs[b], self.ids, self.slabs.shape[1], None)
+
+    def release(self, entry) -> None:
+        pass
+
+
+def engine_flush_s(kind: str, slabs: np.ndarray, eps: float, edges: int,
+                   reps: int = 5) -> float:
+    """Median wall time of one flush of ``edges`` edges (lane e: slab e vs
+    slab e + 1) through a real verify engine, results fetched to the host.
+    The device engine's operands are resident from a warm pass, so a flush
+    pays verify, compaction and the compacted readback, not slab copies."""
+    cache = _Slabs(slabs)
+    cap, dim = slabs.shape[1], slabs.shape[2]
+    kw = dict(epsilon=eps, capacity_rows=cap, dim=dim, verify_batch=edges,
+              device=torch.device("cuda"))
+    eng = (HostVerifyEngine(cache, **kw) if kind == "host"
+           else DeviceVerifyEngine(cache, **kw))
+    times = []
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in range(edges):
+            eng.enqueue(e, e + 1, False)
+        eng.finish()
+        torch.cuda.synchronize()
+        if rep:  # the first pass warms the kernels and the slab pool
+            times.append(time.perf_counter() - t0)
+        eng.pairs_out.clear()
+        eng.dists_out.clear()
+    eng.abort()
+    return float(np.median(times))
+
+
+def copy_gb_s(nbytes: int, direction: str, pinned: bool) -> float:
+    """Host↔device copy rate of one ``nbytes`` copy (median of 5)."""
+    n = nbytes // 4
+    host = torch.empty(n, dtype=torch.float32, pin_memory=pinned)
+    host.numpy()[:] = 1.0
+    dev = torch.empty(n, dtype=torch.float32, device="cuda")
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if direction == "h2d":
+            dev.copy_(host, non_blocking=pinned)
+            torch.cuda.synchronize()
+        else:
+            if pinned:
+                host.copy_(dev, non_blocking=True)
+                torch.cuda.synchronize()
+            else:
+                dev.cpu()   # the host engine's fetch: a fresh pageable copy
+        times.append(time.perf_counter() - t0)
+    return nbytes / float(np.median(times[1:])) / 1e9
+
+
+def calibrate_cost_model(index, eps: float, E: int) -> dict:
+    """The planner's CUDA coefficients on this card (``CostModel``'s
+    static tier): copy rates at a slab-sized and a batch-sized copy, each
+    engine's flush at the verify shape (E, cap, cap, d), and each engine's
+    fixed cost (a flush of one 64-row lane). The per-cell costs are what
+    is left of the measured flush once the model's link and dispatch terms
+    are taken out, so ``CostModel`` reproduces the measured flush."""
+    cap, d = index.bucket_capacity, index.dim
+    slab_bytes = cap * d * 4
+    batch_bytes = E * slab_bytes
+    fetch_bytes = E * cap * cap * 5   # the host engine's d² + mask fetch
+    rates = {
+        "h2d_pinned_slab": copy_gb_s(slab_bytes, "h2d", True),
+        "h2d_pinned_batch": copy_gb_s(batch_bytes, "h2d", True),
+        "d2h_pinned_slab": copy_gb_s(slab_bytes, "d2h", True),
+        "d2h_pageable_fetch": copy_gb_s(fetch_bytes, "d2h", False),
+    }
+    lanes = bucket_lanes(index, E + 1).cpu().numpy()
+    t_host = engine_flush_s("host", lanes, eps, E)
+    t_dev = engine_flush_s("device", lanes, eps, E)
+    small = np.ascontiguousarray(lanes[:2, :64])
+    t_host_fixed = engine_flush_s("host", small, eps, 1, reps=20)
+    t_dev_fixed = engine_flush_s("device", small, eps, 1, reps=20)
+    cells = E * cap * cap
+    h2d, d2h = rates["h2d_pinned_batch"], rates["d2h_pageable_fetch"]
+    # the device engine's readback: compacted triples of its pair_cap
+    dev_fetch = E * (8 * cap * 12 + 4)
+    link_host = (E * 2 * slab_bytes / h2d + fetch_bytes / d2h) / 1e9
+    link_dev = dev_fetch / d2h / 1e9
+    coef = dict(
+        h2d_gb_s=h2d, d2h_gb_s=d2h,
+        host_cell_ns=(t_host - link_host - t_host_fixed) / cells * 1e9,
+        device_cell_ns=(t_dev - link_dev - t_dev_fixed) / cells * 1e9,
+        host_dispatch_s=t_host_fixed, device_dispatch_s=t_dev_fixed)
+    check(coef["host_cell_ns"] > 0 and coef["device_cell_ns"] > 0,
+          f"cost model: a per-cell cost came out <= 0: {coef}")
+    log(f"[io] cost model, measured on this card: copy rates GB/s "
+        f"{json.dumps({k: round(v, 3) for k, v in rates.items()})}; flush "
+        f"at ({E}, {cap}, {cap}, {d}): host {t_host * 1e3:.3f} ms, device "
+        f"{t_dev * 1e3:.3f} ms; one 64-row lane: host "
+        f"{t_host_fixed * 1e3:.4f} ms, device {t_dev_fixed * 1e3:.4f} ms")
+    log("[io] cost model coefficients measured "
+        + json.dumps({k: float(f"{v:.6g}") for k, v in coef.items()})
+        + "; in code " + json.dumps(cost_model._CUDA_STATIC))
+    return dict(rates=rates, coef=coef, flush_host_s=t_host,
+                flush_device_s=t_dev)
+
+
+def cross_recall(x: np.ndarray, y: np.ndarray, eps: float,
+                 pairs: np.ndarray, rows: np.ndarray) -> tuple[float, int]:
+    """Recall of a cross-join's pairs (x id, len(x) + y id) on every true
+    ε-pair of the sampled ``rows`` of y; the truth is float64 on the card."""
+    xd = torch.from_numpy(x).cuda().double()
+    sq = (xd * xd).sum(1)
+    eps2 = float(eps) * float(eps)
+    n_x = x.shape[0]
+    truth = []
+    for i0 in range(0, rows.size, 250):
+        r = torch.from_numpy(rows[i0:i0 + 250]).cuda()
+        q = torch.from_numpy(y[rows[i0:i0 + 250]]).cuda().double()
+        d2 = (q * q).sum(1)[:, None] - 2.0 * (q @ xd.T) + sq[None, :]
+        qi, j = torch.nonzero(d2 <= eps2, as_tuple=True)
+        truth.append(j * (n_x + y.shape[0]) + n_x + r[qi])
+    truth = torch.unique(torch.cat(truth))
+    got = torch.from_numpy(pairs[:, 0] * (n_x + y.shape[0])
+                           + pairs[:, 1]).cuda()
+    return (torch.isin(truth, got).double().mean().item(),
+            int(truth.numel()))
+
+
+def ivf_assign_timing(store) -> dict:
+    """Scan 2 above the reference's crossover: the IVF center index's
+    assign of one scan block (8,192 rows) against 65,537 centers sampled
+    from the smoke data, on the card and on the CPU; the two must agree
+    except on float32 ties (two centers whose float64 d² lie within
+    2^-20 |x|² of each other)."""
+    centers = sample_centers(store, CROSSOVER_CENTERS + 1, 5, 8192)
+    x = np.ascontiguousarray(store.read_rows(np.arange(8192)),
+                             dtype=np.float32)
+    t0 = time.perf_counter()
+    on_card = center_index.make_center_index(centers, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(isinstance(on_card, center_index.IVFCenterIndex),
+          "65,537 centers did not select the IVF index")
+    t0 = time.perf_counter()
+    d_card, i_card = on_card.assign(x)
+    t_assign = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = center_index.make_center_index(centers, device="cpu")
+    d_cpu, i_cpu = on_cpu.assign(x)
+    t_cpu = time.perf_counter() - t0
+    same = i_card == i_cpu
+    over = (np.abs(d_card[same] - d_cpu[same])
+            - (D2_ATOL + D2_RTOL * np.abs(d_cpu[same])))
+    check((over <= 0).all(), "IVF assign d2 on the card outside tolerance")
+    x64, c64 = x[~same].astype(np.float64), centers.astype(np.float64)
+    gap = (((x64 - c64[i_card[~same]]) ** 2).sum(1)
+           - ((x64 - c64[i_cpu[~same]]) ** 2).sum(1))
+    check((np.abs(gap) <= 2.0 ** -20 * (x64 * x64).sum(1)).all(),
+          f"IVF assign: {int((~same).sum())} rows differ from the CPU's "
+          f"off float32 ties")
+    log(f"[io] IVF assign above the crossover (8192 rows x "
+        f"{centers.shape[0]} centers, nprobe {on_card.nprobe}, "
+        f"{on_card.ncoarse} cells): card build {t_build:.3f} s, assign "
+        f"{t_assign:.3f} s ({t_assign / 8192 * 1e6:.1f} us a row, one "
+        f".cpu() a row); CPU build + assign {t_cpu:.3f} s; ids equal on "
+        f"{int(same.sum())} rows, {int((~same).sum())} float32 ties")
+    return dict(build_s=t_build, assign_s=t_assign, cpu_s=t_cpu,
+                tie_rows=int((~same).sum()))
+
+
+def phase_io(main: dict, workdir: str) -> dict:
+    """Prefetch I/O and the planner on the 1M index that the main path
+    built (graph and node order cached), the prefetched and planned query
+    waves, a cross-join against a striped near-duplicate corpus, the cost
+    model's coefficients, and the IVF assign's time. Each driven path has
+    its launch counts zeroed just before and read just after."""
+    s = main["shapes"]
+    index, x, eps, Q = s["index"], s["x"], s["eps"], s["Q"]
+    res = main["res"]
+    out = {}
+    t = {}
+
+    # 1. prefetch join: byte-identical to the main path's sync join
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pre = index.self_join(io_mode="prefetch", io_batch_reads=True)
+    torch.cuda.synchronize()
+    t["prefetch_join"] = time.perf_counter() - t0
+    launches_pre = dict(ops.LAUNCHES)
+    verify_launches_all_tc(launches_pre, "prefetch join")
+    check_identical(res, pre, "prefetch vs sync join")
+    out["sync"], out["prefetch"] = pipeline_line(res), pipeline_line(pre)
+    log(f"[io] prefetch join (1M, device mode, io_batch_reads): "
+        f"byte-identical to the sync join; verify launches "
+        f"{launches_pre['verify_pairs_batch']}, all tc")
+    log("[io] sync     " + json.dumps(out["sync"]))
+    log("[io] prefetch " + json.dumps(out["prefetch"]))
+
+    # 2. planned join, compute_mode="auto": byte-identical as well
+    auto = dict(io_mode="prefetch", plan_mode="on", compute_mode="auto")
+    cost = index._planner_for(index._resolve(dict(auto))).cost
+    log(f"[io] cost model: {cost.describe()}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    planned = index.self_join(**auto)
+    torch.cuda.synchronize()
+    t["planned_join"] = time.perf_counter() - t0
+    launches_plan = dict(ops.LAUNCHES)
+    verify_launches_all_tc(launches_plan, "planned join")
+    check_identical(res, planned, "planned auto vs sync join")
+    plan = planned.plan
+    routes = {r: sum(1 for rt, _ in plan.unit_params if rt == r)
+              for r in ("host", "device")}
+    batches = sorted({b for _, b in plan.unit_params})
+    overflows = planned.io_stats["pipeline"]["device_compact_overflows"]
+    out["planned"] = pipeline_line(planned)
+    out["plan"] = dict(compute_mode=plan.compute_mode, routes=routes,
+                       pair_cap=plan.pair_cap, units=plan.num_units,
+                       verify_batches=batches, overflows=overflows,
+                       est_pairs=plan.est_total, hi_pairs=plan.hi_total)
+    log(f"[io] planned join (prefetch, plan on, compute auto): "
+        f"byte-identical to the sync join; plan {plan.compute_mode}, "
+        f"units {plan.num_units} (host {routes['host']}, device "
+        f"{routes['device']}), pair_cap {plan.pair_cap}, verify batches "
+        f"{batches[0]}..{batches[-1]} ({len(batches)} distinct), est pairs "
+        f"{plan.est_total:.4g} [hi {plan.hi_total:.4g}], device compaction "
+        f"overflows {overflows}; verify launches "
+        f"{launches_plan['verify_pairs_batch']}, all tc")
+    log("[io] planned  " + json.dumps(out["planned"]))
+    log("[io] " + plan.explain().replace("\n", "\n[io] "))
+    check(overflows == 0, f"the planned join overflowed its pair_cap "
+          f"{overflows} times")
+
+    # 3. prefetched, planned query waves: the sync waves' memberships
+    ops.reset_launches()
+    qt = {}
+    q_out = {}
+    for mode in ("host", "device"):
+        index.drop_warm_cache()
+        t0 = time.perf_counter()
+        q_out[mode] = index.query_batch(Q, io_mode="prefetch",
+                                        plan_mode="on", compute_mode=mode)
+        torch.cuda.synchronize()
+        qt[mode] = time.perf_counter() - t0
+    launches_q = dict(ops.LAUNCHES)
+    verify_launches_all_tc(launches_q, "prefetched query waves")
+    for mode, sync in (("host", main["q_host"]), ("device", main["q_dev"])):
+        members, boundary, found = check_query_agreement(
+            x, Q, main["src"], eps, sync, q_out[mode])
+        log(f"[io] query_batch {len(Q)} (prefetch, plan on, {mode}): "
+            f"{qt[mode]:.3f} s; {members} members, {boundary} differences "
+            f"from the sync {mode} wave, all on the eps boundary")
+    check_query_agreement(x, Q, main["src"], eps, q_out["host"],
+                          q_out["device"])
+    out["query_s"] = qt
+
+    # 4. cross-join against a striped near-duplicate corpus
+    n_y = N_CROSS
+    rng = np.random.default_rng(17)
+    y = (x[rng.choice(x.shape[0], size=n_y, replace=False)]
+         + rng.normal(scale=1e-3, size=(n_y, DIM))).astype(np.float32)
+    ystore = FlatVectorStore.from_array(os.path.join(workdir, "y.bin"), y)
+    ycfg = dataclasses.replace(main["cfg"], num_buckets=n_y // 1000,
+                               io_devices=4, io_coalesce=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    other = DiskJoinIndex.build(ystore, ycfg, os.path.join(workdir, "yidx"),
+                                layout="spatial")
+    t["cross_build"] = time.perf_counter() - t0
+    check(other.store.num_devices == 4, "the second side is not striped")
+    t0 = time.perf_counter()
+    c_sync = index.cross_join(other)
+    torch.cuda.synchronize()
+    t["cross_sync"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_pre = index.cross_join(other, io_mode="prefetch", io_batch_reads=True)
+    torch.cuda.synchronize()
+    t["cross_prefetch"] = time.perf_counter() - t0
+    launches_x = dict(ops.LAUNCHES)
+    verify_launches_all_tc(launches_x, "cross-join")
+    assign_launches_all_tc(launches_x, "the striped build")
+    check_identical(c_sync, c_pre, "cross-join sync vs prefetch")
+    n_x = x.shape[0]
+    p = c_sync.pairs
+    check(p.shape[0] > 0 and (p[:, 0] < n_x).all()
+          and (p[:, 1] >= n_x).all() and (p[:, 1] < n_x + n_y).all(),
+          "cross-join pair ids")
+    d64 = np.sqrt(((x[p[:5000, 0]].astype(np.float64)
+                    - y[p[:5000, 1] - n_x]) ** 2).sum(1))
+    check(np.abs(c_sync.distances[:5000] - d64).max() <= 1e-3,
+          "cross-join distances vs float64")
+    rows = np.random.default_rng(4).choice(n_y, size=N_RECALL_ROWS,
+                                           replace=False)
+    rec, n_truth = cross_recall(x, y, eps, p, rows)
+    pipe = c_pre.io_stats["pipeline"]
+    out["cross"] = dict(pairs=int(p.shape[0]), recall=rec,
+                        sync=pipeline_line(c_sync),
+                        prefetch=pipeline_line(c_pre),
+                        device_loads=pipe["device_loads"])
+    log(f"[io] cross-join {n_x} x {n_y} (striped side: 4 devices, coalesced, "
+        f"spatial layout; built in {t['cross_build']:.3f} s): "
+        f"{p.shape[0]} pairs, sync and prefetch byte-identical; recall "
+        f"{rec!r} on {n_truth} true pairs of {N_RECALL_ROWS} rows of the "
+        f"second side (need >= 0.88); verify launches "
+        f"{launches_x['verify_pairs_batch']}, all tc")
+    log(f"[io] cross-join prefetch: per-device loads {pipe['device_loads']} "
+        f"(device 0: the 1M side), coalesced reads {pipe['coalesced_reads']}"
+        f" of {pipe['coalesced_buckets']} buckets, batched submissions "
+        f"{pipe['batched_submissions']}")
+    log("[io] cross sync     " + json.dumps(out["cross"]["sync"]))
+    log("[io] cross prefetch " + json.dumps(out["cross"]["prefetch"]))
+    check(rec >= 0.88, f"cross-join recall {rec} < 0.88")
+    other.close()
+
+    # 5. the planner's CUDA coefficients, and the IVF assign's time
+    t0 = time.perf_counter()
+    out["cost_model"] = calibrate_cost_model(index, eps, s["E"])
+    t["calibrate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ivf"] = ivf_assign_timing(s["store"])
+    t["ivf"] = time.perf_counter() - t0
+    log(f"[io] phase seconds {json.dumps({k: round(v, 3) for k, v in t.items()})}")
+    out["launches"] = dict(prefetch=launches_pre, planned=launches_plan,
+                           queries=launches_q, cross=launches_x)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: byte parity at 100k: host/device x sync/prefetch x striping
 # ---------------------------------------------------------------------------
 def phase_parity(workdir: str) -> None:
     n = N_PARITY
@@ -700,6 +1098,7 @@ def phase_parity(workdir: str) -> None:
     store = FlatVectorStore.from_array(os.path.join(workdir, "p.bin"), x)
     cfg = JoinConfig(epsilon=eps, num_buckets=n // 1000,
                      memory_budget_bytes=x.nbytes // 10, pad_align=128)
+    runs = {}
     with DiskJoinIndex.build(store, cfg,
                              os.path.join(workdir, "pidx")) as index:
         t0 = time.perf_counter()
@@ -709,6 +1108,8 @@ def phase_parity(workdir: str) -> None:
         dev = index.self_join(compute_mode="device")
         torch.cuda.synchronize()
         t_dev = time.perf_counter() - t0
+        runs[("plain", "prefetch", "device")] = index.self_join(
+            compute_mode="device", io_mode="prefetch")
     check_join_output(x, eps, host)
     check(np.array_equal(host.pairs, dev.pairs), "host/device pairs differ")
     check(np.array_equal(host.distances, dev.distances),
@@ -718,6 +1119,27 @@ def phase_parity(workdir: str) -> None:
     log(f"[parity] {n} x {DIM}: {host.pairs.shape[0]} pairs, host "
         f"and device byte-identical (pairs and distances); self_join host "
         f"{t_host:.3f} s, device {t_dev:.3f} s")
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(cfg, io_devices=4, io_coalesce=True)
+    with DiskJoinIndex.build(store, scfg,
+                             os.path.join(workdir, "psidx")) as striped:
+        t_build = time.perf_counter() - t0
+        check(striped.store.num_devices == 4, "parity: not striped")
+        # host mode fetches whole d²/mask batches (about a minute a join
+        # here): it runs once, device mode in every I/O × striping corner
+        for io_mode in ("sync", "prefetch"):
+            runs[("striped", io_mode, "device")] = striped.self_join(
+                compute_mode="device", io_mode=io_mode)
+    for key, r in runs.items():
+        check_identical(host, r, f"parity {key} vs plain sync host")
+    log(f"[parity] striped build (4 devices, coalesced) {t_build:.3f} s; "
+        f"byte-identical to plain sync host (pairs and distances): "
+        + ", ".join("/".join(k) for k in runs))
+    log("[parity] execute / io_wait / compute s: " + "; ".join(
+        "/".join(k) + " " + "/".join(f"{r.timings[t]:.3f}" for t in (
+            "execute", "io_wait", "compute"))
+        for k, r in [(("plain", "sync", "host"), host),
+                     (("plain", "sync", "device"), dev), *runs.items()]))
 
 
 # ---------------------------------------------------------------------------
@@ -1004,7 +1426,19 @@ def main() -> int:
     try:
         main_path = phase_main_path(workdir)
         kernels = phase_kernels(main_path)
+        t_io = time.perf_counter()
+        io = phase_io(main_path, workdir)
+        log(f"[io] phase {time.perf_counter() - t_io:.1f} s")
+        # the [io] paths' own launch counts beside the main path's
+        wrapper = {"pairwise_l2_threshold_batched": "verify_pairs_batch",
+                   "pairwise_l2_threshold": "pairwise_l2_threshold",
+                   "bucket_assign": "bucket_assign"}
+        for k in kernels:
+            k["io_launches"] = {path: n[wrapper[k["name"]]]
+                                for path, n in io["launches"].items()}
+        t_parity = time.perf_counter()
         phase_parity(workdir)
+        log(f"[parity] phase {time.perf_counter() - t_parity:.1f} s")
         if args.profile:
             phase_profile(main_path["shapes"]["index"])
         main_path["shapes"]["index"].close()

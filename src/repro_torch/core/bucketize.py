@@ -17,9 +17,9 @@ Memory high-water mark: centers (≈1‰–1% of data) + index + block buffer +
 per-bucket write buffers — matches the paper's "minimum ≈2% of dataset".
 
 Port of the JAX package's ``core/bucketize.py``: scans 1 and 3, the
-oversize split and the radii/compaction are the same numpy code. Only the
-unstriped writer is ported (``io_devices > 1`` waits for the striped
-store), and the resumable-build and sketch hooks wait for later slices.
+oversize split, the radii/compaction, the striped writer
+(``io_devices > 1``) and the planner's sketch hook are the same numpy
+code. The resumable build (``phase_log``) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ from repro_torch.core.center_index import (BruteForceCenterIndex,
                                            make_center_index)
 from repro_torch.core.types import BucketMeta, JoinConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.store.striped_store import (COALESCE_STRIPE_CHUNK,
+                                             StripedBucketedVectorStore)
 from repro_torch.store.vector_store import BucketedVectorStore, FlatVectorStore
 
 
@@ -111,15 +113,26 @@ def split_oversized(assignment: np.ndarray, centers: np.ndarray,
 def write_buckets(store: FlatVectorStore, out_path: str,
                   assignment: np.ndarray, sizes: np.ndarray,
                   centers: np.ndarray, radii: np.ndarray,
-                  block_rows: int, layout_order: np.ndarray | None = None):
+                  block_rows: int, layout_order: np.ndarray | None = None,
+                  num_devices: int = 1, stripe_by: str = "phase",
+                  stripe_chunk: int = 1):
     """Scan 3: stream X, append to per-bucket buffered extents.
 
     ``layout_order`` places bucket extents in Gorder/schedule order so
-    schedule-adjacent buckets are disk-adjacent (read coalescing).
+    schedule-adjacent buckets are disk-adjacent (read coalescing);
+    ``num_devices > 1`` stripes the extents over that many backing files
+    (``StripedBucketedVectorStore``).
     """
-    writer = BucketedVectorStore.create(
-        out_path, store.dim, np.float32, sizes, centers, radii,
-        stats=store.stats, layout_order=layout_order)
+    if num_devices > 1:
+        writer = StripedBucketedVectorStore.create(
+            out_path, store.dim, np.float32, sizes, centers, radii,
+            num_devices=num_devices, stats=store.stats,
+            layout_order=layout_order, stripe_by=stripe_by,
+            stripe_chunk=stripe_chunk)
+    else:
+        writer = BucketedVectorStore.create(
+            out_path, store.dim, np.float32, sizes, centers, radii,
+            stats=store.stats, layout_order=layout_order)
     for start, block in store.iter_blocks(block_rows):
         blk_assign = assignment[start:start + block.shape[0]]
         # group within the block to batch appends per bucket
@@ -137,8 +150,10 @@ def write_buckets(store: FlatVectorStore, out_path: str,
 
 
 def bucketize(store: FlatVectorStore, out_path: str, config: JoinConfig,
-              *, device: torch.device, layout_order_fn=None
-              ) -> tuple[BucketedVectorStore, BucketMeta, dict]:
+              *, device: torch.device, layout_order_fn=None,
+              sketch_sink=None
+              ) -> tuple["BucketedVectorStore | StripedBucketedVectorStore",
+                         BucketMeta, dict]:
     """Full 3-scan bucketization → (bucketed store, metadata, timings).
 
     ``config`` may be a flat ``JoinConfig`` or a bare ``BuildConfig`` —
@@ -149,12 +164,15 @@ def bucketize(store: FlatVectorStore, out_path: str, config: JoinConfig,
     bucket metadata is known, *before* the write scan — returns the disk
     layout order (typically the join's Gorder node order, see
     ``ordering.compute_node_order``) so the writer can make
-    schedule-adjacent buckets disk-adjacent.
+    schedule-adjacent buckets disk-adjacent. Striping (``config.io_devices
+    > 1``) applies whether or not a layout order is supplied.
+
+    ``sketch_sink(assignment, num_buckets) -> None``: called with the
+    FINAL assignment (after oversize splitting and empty-bucket
+    compaction) so the planner's cardinality sketch can sample the flat
+    store directly — at build time the bucketed store doesn't exist yet,
+    and resampling it later would pay one read per bucket.
     """
-    if config.io_devices > 1:
-        raise NotImplementedError(
-            "io_devices > 1 (striped bucket stores) is not ported yet; see "
-            "ROADMAP.md, module queue: striping")
     timings: dict[str, float] = {}
     n_buckets = config.resolve_num_buckets(store.num_vectors)
 
@@ -194,16 +212,28 @@ def bucketize(store: FlatVectorStore, out_path: str, config: JoinConfig,
 
     meta = BucketMeta(centers=centers, radii=radii, sizes=sizes)
 
+    if sketch_sink is not None:
+        t0 = time.perf_counter()
+        sketch_sink(assignment, int(centers.shape[0]))
+        timings["sketch"] = time.perf_counter() - t0
+
     layout_order = None
     if layout_order_fn is not None:
         t0 = time.perf_counter()
         layout_order = layout_order_fn(meta)
         timings["layout_plan"] = time.perf_counter() - t0
 
+    # under coalescing, chunked phase striping keeps schedule-adjacent
+    # buckets on one device (coalescible) while chunks rotate devices;
+    # without it, chunk 1 maximizes per-miss device fan-out
+    stripe_chunk = (COALESCE_STRIPE_CHUNK if config.io_coalesce else 1)
     t0 = time.perf_counter()
     bstore = write_buckets(store, out_path, assignment, sizes, centers,
                            radii, config.block_rows,
-                           layout_order=layout_order)
+                           layout_order=layout_order,
+                           num_devices=config.io_devices,
+                           stripe_by=config.io_stripe_by,
+                           stripe_chunk=stripe_chunk)
     timings["write"] = time.perf_counter() - t0
     bstore.read_latency_s = getattr(config, "emulate_read_latency_s", 0.0)
 

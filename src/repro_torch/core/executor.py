@@ -13,13 +13,21 @@ pass ε), never by their distance alone.
 Batched dispatch: edges accumulate into ``JoinConfig.verify_batch``-sized
 batches verified by a verify engine (``repro_torch.compute``) with one
 kernel launch per flush; cache-evicted slabs stay alive through the
-pending batch's references.
+pending batch's references (Python references in sync mode, buffer-pool
+pins in prefetch mode, device copies in device compute mode).
 
-Port of the JAX package's ``core/executor.py``. I/O is synchronous (reads
-inline on the executor thread): ``io_mode="prefetch"`` and
-``plan_mode="on"`` wait for later slices (ROADMAP.md, module queue).
-Compute modes ``"host"`` and ``"device"`` replay the same cache schedule
-and give byte-identical results.
+I/O modes (``JoinConfig.io_mode``): ``"sync"`` reads every missed bucket
+inline; ``"prefetch"`` consumes slabs from ``repro_torch.io``'s
+schedule-driven prefetcher, whose worker threads read with numpy only
+(no torch or CUDA call runs off the executor thread). With
+``plan_mode="on"`` a ``repro_torch.plan.Planner`` sizes the device
+compaction, retunes the flush threshold per schedule region and routes
+each verify unit to the host or the device engine
+(``compute_mode="auto"``).
+
+Port of the JAX package's ``core/executor.py``. Every combination of I/O
+mode, compute mode and plan replays the same cache schedule and gives
+byte-identical results.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from repro_torch.core.types import (BucketGraph, BucketMeta, JoinConfig,
                                     JoinResult, dedup_pairs,
                                     resolve_bucket_capacity,
                                     resolve_cache_buckets)
-from repro_torch.io import PipelineStats
+from repro_torch.io import PipelineStats, PrefetchedBucketCache
 from repro_torch.io.retry import read_with_retry
 from repro_torch.obs import get_tracer
 from repro_torch.store.vector_store import BucketedVectorStore
@@ -48,9 +56,10 @@ class BucketCache:
     """Padded bucket slabs (host staging), driven by the cache schedule.
 
     The sync I/O backend: ``load`` reads inline on the executor thread.
-    ``checkout``/``release`` is the surface the verify engines use (here
-    release is a no-op — Python references keep evicted slabs alive for
-    pending verify batches).
+    Shares the ``checkout``/``release`` surface with
+    ``repro_torch.io.PrefetchedBucketCache`` (here release is a no-op —
+    Python references keep evicted slabs alive for pending verify
+    batches).
     """
 
     def __init__(self, store: BucketedVectorStore, capacity_rows: int,
@@ -106,34 +115,40 @@ class BucketCache:
 
 
 class JoinExecutor:
-    intra_join = True
+    intra_join = True  # the cross-join subclass disables intra-bucket pairs
 
     def __init__(self, store: BucketedVectorStore, meta: BucketMeta,
                  config: JoinConfig, *, device: torch.device,
                  attribute_mask: np.ndarray | None = None,
-                 shared_stats=None, tracer=None):
+                 shared_pool=None, shared_stats=None, tracer=None,
+                 planner=None):
         """``attribute_mask``: (N,) bool — attribute filtering (paper §3
         extension): vectors failing the predicate are excluded from
         verification via a bitmap, before any distance is computed.
 
-        ``shared_stats``: a ``DiskJoinIndex`` session's lifetime
-        ``PipelineStats`` — batch joins and online point queries then
-        share one telemetry surface. ``device``: where the verify engine
-        runs (its kernels on CUDA, their plain versions on the CPU)."""
-        if config.io_mode == "prefetch":
-            raise NotImplementedError(
-                "io_mode='prefetch' is not ported yet; see ROADMAP.md, "
-                "module queue: prefetch I/O")
-        if config.plan_mode == "on":
-            raise NotImplementedError(
-                "plan_mode='on' is not ported yet; see ROADMAP.md, module "
-                "queue: the planner")
+        ``shared_pool`` / ``shared_stats``: a ``DiskJoinIndex`` session's
+        lifetime ``BufferPool`` and ``PipelineStats`` — batch joins and
+        online point queries then share one memory budget and one
+        telemetry surface. The pool is used only when its slab shape and
+        size fit this run (otherwise a private pool is created; the stats
+        are shared regardless).
+
+        ``planner``: a ``repro_torch.plan.Planner`` (usually the index
+        session's) consulted when ``config.plan_mode == "on"``; with
+        plan_mode on and no planner supplied, one is built lazily by
+        sampling the bucketed store (the one-shot / cross-join path).
+
+        ``device``: where the verify engine runs (its kernels on CUDA,
+        their plain versions on the CPU); it also picks the planner's
+        static cost constants."""
         self.store = store
         self.meta = meta
         self.config = config
         self.device = torch.device(device)
         self.attribute_mask = attribute_mask
+        self.shared_pool = shared_pool
         self.shared_stats = shared_stats
+        self.planner = planner
         self.tracer = tracer if tracer is not None else get_tracer()
         cap = resolve_bucket_capacity(config, meta.sizes)
         self.bucket_capacity = cap
@@ -164,28 +179,77 @@ class JoinExecutor:
         return tasks, access_seq, schedule, plan_seconds
 
     # -- execution -----------------------------------------------------------
+    def _make_cache(self, schedule):
+        """Cache backend per JoinConfig.io_mode (+ pipeline stats or None)."""
+        if self.config.io_mode != "prefetch":
+            stats = self.shared_stats
+            if stats is None and self.config.compute_mode != "host":
+                # device telemetry (h2d/compaction counters) needs a
+                # stats surface even without the prefetch pipeline
+                stats = PipelineStats()
+            return BucketCache(self.store, self.bucket_capacity,
+                               retries=self.config.io_retries,
+                               retry_backoff_s=self.config.io_retry_backoff_s,
+                               stats=stats), stats
+        cap_buckets = min(self.cache_buckets, self.meta.num_buckets or 1)
+        pool_slabs = self.config.io_pool_slabs
+        if pool_slabs is None:
+            pool_slabs = cap_buckets + self.config.io_lookahead
+        pool_slabs = max(pool_slabs, cap_buckets + 1)  # liveness floor
+        stats = (self.shared_stats if self.shared_stats is not None
+                 else PipelineStats())
+        pool = self.shared_pool
+        if pool is not None and (pool.capacity_rows != self.bucket_capacity
+                                 or pool.dim != self.store.dim
+                                 or pool.num_slabs < pool_slabs):
+            pool = None  # session pool doesn't fit this run: go private
+        cache = PrefetchedBucketCache(
+            self.store, self.bucket_capacity, schedule.actions,
+            lookahead=self.config.io_lookahead, pool_slabs=pool_slabs,
+            num_threads=self.config.io_threads, pad_value=PAD_COORD,
+            batch_reads=self.config.io_batch_reads,
+            coalesce=self.config.io_coalesce, stats=stats, pool=pool,
+            tracer=self.tracer, retries=self.config.io_retries,
+            retry_backoff_s=self.config.io_retry_backoff_s)
+        return cache, stats
+
+    def _resolve_planner(self, pstats):
+        """The session planner when given, else (plan_mode on) a lazily
+        built one sampling this executor's store — the one-shot and
+        cross-join paths, whose stores have no persisted sketch."""
+        if self.planner is not None or self.config.plan_mode != "on":
+            return self.planner
+        from repro_torch.plan import CardinalityEstimator, CostModel, Planner
+        est = CardinalityEstimator.sample_bucketed(
+            self.store, self.meta.sizes, seed=self.config.seed)
+        cost = CostModel.from_telemetry(
+            self.config, pstats.snapshot() if pstats is not None else None,
+            device=self.device)
+        self.planner = Planner(est, cost, tracer=self.tracer,
+                               pstats=pstats)
+        return self.planner
+
     def run(self, graph: BucketGraph,
             node_order: np.ndarray | None = None) -> JoinResult:
         tasks, access_seq, schedule, plan_seconds = self.plan(graph,
                                                              node_order)
-        pstats = self.shared_stats
-        if pstats is None and self.config.compute_mode != "host":
-            # device telemetry (h2d/compaction counters) needs a stats
-            # surface even without a session
-            pstats = PipelineStats()
-        cache = BucketCache(self.store, self.bucket_capacity,
-                            retries=self.config.io_retries,
-                            retry_backoff_s=self.config.io_retry_backoff_s,
-                            stats=pstats)
+        cache, pstats = self._make_cache(schedule)
         # on a session's lifetime stats, this run's result must still
         # report per-run numbers: diff against a baseline at the end
         pstats_base = (pstats.snapshot() if pstats is not None
                        and self.shared_stats is not None else None)
+        jplan = None
+        if self.config.plan_mode == "on":
+            planner = self._resolve_planner(pstats)
+            jplan = planner.plan_join(tasks, schedule.actions, self.meta,
+                                      self.config, self.bucket_capacity,
+                                      intra_join=self.intra_join)
         engine = make_verify_engine(self.config, cache,
                                     self.bucket_capacity, self.store.dim,
                                     self.device,
                                     attribute_mask=self.attribute_mask,
-                                    pstats=pstats, tracer=self.tracer)
+                                    pstats=pstats, tracer=self.tracer,
+                                    plan=jplan)
 
         tracer = self.tracer
         run_span = tracer.span("join.run", edges=graph.num_edges,
@@ -207,11 +271,31 @@ class JoinExecutor:
                 if victim is not None:
                     cache.evict(victim)
                     engine.evict(victim)
+                if not cache.load_issued:
+                    # the prefetcher is behind AND may be blocked on the
+                    # pool: flush every engine's pending pins so a slab
+                    # frees up (liveness; the routed engine flushes both)
+                    if engine.pending and pstats is not None:
+                        pstats.add("flush_on_stall", 1)
+                    engine.flush()
                 t1 = time.perf_counter()
                 cache.load(b)
                 dt = time.perf_counter() - t1
                 io_wait += dt
+                # same interval as the io_wait accumulator
                 tracer.complete("io.wait", t1, dt, bucket=b)
+
+        # plan cursor: unit_params is in exact enqueue order (the planner
+        # replayed this same task walk), so consumption is a single index
+        ui = 0
+        unit_params = jplan.unit_params if jplan is not None else None
+
+        def tune() -> None:
+            nonlocal ui
+            route, vb = unit_params[ui]
+            ui += 1
+            engine.set_route(route)
+            engine.set_verify_batch(vb)
 
         try:
             for task in tasks:
@@ -219,11 +303,15 @@ class JoinExecutor:
                     b = int(task[1])
                     ensure(b)
                     if self.intra_join and cache.rows(b) >= 2:
+                        if unit_params is not None:
+                            tune()
                         engine.enqueue(b, b, True)
                 else:
                     _, u, v = task
                     ensure(int(u))
                     ensure(int(v))
+                    if unit_params is not None:
+                        tune()
                     engine.enqueue(int(u), int(v), False)
             engine.finish()
         finally:
@@ -247,7 +335,10 @@ class JoinExecutor:
         if pstats is not None:
             pstats.add("io_wait_s", io_wait)
             pstats.add("compute_s", compute_t)
-            pstats.add("loads", cache.loads)
+            if self.config.io_mode != "prefetch":
+                # prefetch-mode loads are counted at pop_next; count sync
+                # loads here so a session's stats see both join kinds
+                pstats.add("loads", cache.loads)
             io_stats["pipeline"] = (pstats.snapshot_since(pstats_base)
                                     if pstats_base is not None
                                     else pstats.snapshot())
@@ -260,4 +351,5 @@ class JoinExecutor:
             bucket_loads=cache.loads,
             io_stats=io_stats,
             timings=timings,
+            plan=jplan,
         )

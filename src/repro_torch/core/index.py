@@ -23,9 +23,11 @@ member query's verify).
 
 Port of the JAX package's ``core/index.py``. Every session has a
 ``torch.device``: ``build``/``open`` take ``device=None`` (CUDA) and raise
-without CUDA unless given ``device="cpu"``. Not ported yet (ROADMAP.md,
-module queue): resumable builds, cross-joins, striped stores,
-``io_mode="prefetch"``, the planner (``plan_mode="on"``), live
+without CUDA unless given ``device="cpu"``. Ported: striped stores
+(``io_devices > 1``), ``io_mode="prefetch"`` for joins and query waves,
+the planner (``plan_mode="on"``, ``compute_mode="auto"``) with the
+build-time cardinality sketch, and cross-joins. Not ported yet
+(ROADMAP.md, module queue: serving): resumable builds, live
 observability and residency snapshots.
 """
 from __future__ import annotations
@@ -36,6 +38,7 @@ import os
 import tempfile
 import threading
 import time
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.compute import next_pow2, query_verify_compact
 from repro_torch.core import ordering
+from repro_torch.core.bipartite import bipartite_join
 from repro_torch.core.bucket_graph import build_bucket_graph
 from repro_torch.core.bucketize import bucketize
 from repro_torch.core.center_index import make_center_index
@@ -56,9 +60,12 @@ from repro_torch.core.types import (BUILD_TIME_FIELDS, QUERY_TIME_FIELDS,
                                     resolve_cache_buckets, split_config)
 from repro_torch.device import resolve_device, to_device
 from repro_torch.ft.atomic import atomic_write_json
-from repro_torch.io import BufferPool, PipelineStats
+from repro_torch.io import BufferPool, PipelineStats, SchedulePrefetcher
 from repro_torch.io.retry import read_with_retry
 from repro_torch.obs import get_tracer
+from repro_torch.plan import (SKETCH_FILE, CardinalityEstimator, CostModel,
+                              Planner)
+from repro_torch.store.striped_store import StripedBucketedVectorStore
 from repro_torch.store.vector_store import BucketedVectorStore, FlatVectorStore
 
 MANIFEST_NAME = "diskjoin_index.json"
@@ -108,6 +115,13 @@ class DiskJoinIndex:
         self._warm: OrderedDict[int, tuple[int, int]] = OrderedDict()
         self._warm_lock = threading.RLock()
         self._joins_active = 0
+        # cost-based planning (repro_torch.plan): the sketch-backed
+        # estimator is session-lazy; _warm_quota is the PoolPlan's serving
+        # share of the slab budget (None = all but the reserve)
+        self._estimator: CardinalityEstimator | None = None
+        self._estimator_lock = threading.Lock()
+        self._sketch_path = os.path.join(workdir, SKETCH_FILE)
+        self._warm_quota: int | None = None
         self._closed = False
 
     # -- construction ---------------------------------------------------------
@@ -121,11 +135,14 @@ class DiskJoinIndex:
         query-time half becomes the session's per-call defaults) or a bare
         ``BuildConfig`` (then every query call must pass ``epsilon``).
 
-        ``layout`` chooses the disk extent order used when coalescing is
-        on: ``"auto"`` plans the join schedule order for the config's
-        default parameters (schedule-adjacent ⇒ disk-adjacent);
-        ``"spatial"`` uses the ε-free nearest-neighbor center tour.
-        Without coalescing no reordering is needed.
+        ``layout`` chooses the disk extent order used when coalescing or
+        striping is on: ``"auto"`` plans the join schedule order for the
+        config's default parameters (schedule-adjacent ⇒ disk-adjacent);
+        ``"spatial"`` uses the ε-free nearest-neighbor center tour (the
+        right choice for an index that mostly serves cross-joins).
+        Without coalescing or striping no reordering is needed. The build
+        also samples the planner's cardinality sketch from the flat store
+        and persists it next to the manifest.
 
         ``device``: ``None`` (CUDA) or ``"cpu"``; raises without CUDA
         unless ``"cpu"`` is asked for.
@@ -138,16 +155,14 @@ class DiskJoinIndex:
         if layout not in ("auto", "spatial"):
             raise ValueError(f"layout must be 'auto' or 'spatial', "
                              f"got {layout!r}")
-        if build_cfg.io_devices > 1:
-            raise _not_ported("io_devices > 1 (striped stores)", "striping")
         workdir = workdir or tempfile.mkdtemp(prefix="diskjoin_index_")
         os.makedirs(workdir, exist_ok=True)
 
-        # disk-layout planning (only when coalescing can use it): the
-        # write scan needs the extent order *before* it lays them out
+        # disk-layout planning (only when coalescing/striping can use it):
+        # the write scan needs the extent order *before* it lays them out
         plan_cache: dict = {}
         layout_fn = None
-        if build_cfg.io_coalesce:
+        if build_cfg.io_coalesce or build_cfg.io_devices > 1:
             if layout == "auto" and query_defaults is not None:
                 flat = merge_config(build_cfg, query_defaults)
 
@@ -168,15 +183,28 @@ class DiskJoinIndex:
                     plan_cache.update(order=order, kind="spatial")
                     return order
 
+        # planner cardinality sketch: sampled from the FLAT store during
+        # bucketization (one gather, no bucketed-store reads), persisted
+        # next to the manifest so reattached sessions load it for free
+        sketch_box: dict = {}
+
+        def sketch_sink(assignment, num_buckets):
+            sketch_box["est"] = CardinalityEstimator.sample_flat(
+                store, assignment, num_buckets, seed=build_cfg.seed)
+
         t0 = time.perf_counter()
         bstore, meta, bt = bucketize(store, os.path.join(workdir, "buckets"),
                                      config, device=dev,
-                                     layout_order_fn=layout_fn)
+                                     layout_order_fn=layout_fn,
+                                     sketch_sink=sketch_sink)
         build_seconds = time.perf_counter() - t0
 
         index = cls(workdir, bstore, meta, build_cfg, query_defaults,
                     device=dev, build_timings=bt,
                     build_seconds=build_seconds)
+        est = sketch_box["est"]
+        est.save(index._sketch_path)
+        index._estimator = est
         if "graph" in plan_cache and query_defaults is not None:
             # the layout pass already planned the default-config join;
             # seed the session caches so the first self_join reuses it
@@ -209,8 +237,6 @@ class DiskJoinIndex:
             m = json.load(f)
         if m.get("format") != MANIFEST_FORMAT:
             raise ValueError(f"{path}: not a {MANIFEST_FORMAT} manifest")
-        if m["striped"]:
-            raise _not_ported("opening a striped index", "striping")
         build_cfg = BuildConfig(**m["build"])
         manifest_defaults = (QueryConfig(**m["query_defaults"])
                              if m.get("query_defaults") else None)
@@ -229,7 +255,9 @@ class DiskJoinIndex:
             query_defaults = config
         elif config is not None:
             raise TypeError("config must be JoinConfig, QueryConfig or None")
-        store = BucketedVectorStore(os.path.join(workdir, m["store"]))
+        store_path = os.path.join(workdir, m["store"])
+        store = (StripedBucketedVectorStore(store_path) if m["striped"]
+                 else BucketedVectorStore(store_path))
         if query_defaults is not None:
             store.read_latency_s = query_defaults.emulate_read_latency_s
         meta = BucketMeta(centers=store.centers, radii=store.radii,
@@ -256,7 +284,7 @@ class DiskJoinIndex:
         manifest = {
             "format": MANIFEST_FORMAT,
             "store": "buckets",
-            "striped": False,
+            "striped": self.store.__class__ is StripedBucketedVectorStore,
             "dim": int(self.store.dim),
             "num_buckets": int(self.meta.num_buckets),
             "num_vectors": int(self.meta.sizes.sum()),
@@ -268,12 +296,31 @@ class DiskJoinIndex:
                              if layout_order is not None else None),
             "build_seconds": self.build_seconds,
             "build_timings": self.build_timings,
-            # the planner's sketch is not built by the port; the JAX
-            # package rebuilds one lazily when its planner first needs it
-            "sketch": None,
+            # additive (format stays v1): pre-sketch manifests simply
+            # lack the key and get a lazy rebuild on first planner use
+            "sketch": (self._sketch_manifest_entry()
+                       if self._estimator is not None else None),
         }
         atomic_write_json(os.path.join(self.workdir, MANIFEST_NAME),
                           manifest)
+
+    def _sketch_manifest_entry(self) -> dict:
+        return {"file": SKETCH_FILE,
+                "sample_rows": int(self._estimator.sample_rows),
+                "seed": int(self._estimator.seed)}
+
+    def _note_sketch_in_manifest(self) -> None:
+        """Record a lazily-rebuilt sketch in the manifest (read-modify-
+        write of the JSON only — nothing else changes)."""
+        path = os.path.join(self.workdir, MANIFEST_NAME)
+        try:
+            with open(path) as f:
+                m = json.load(f)
+            m["sketch"] = self._sketch_manifest_entry()
+            with open(path, "w") as f:
+                json.dump(m, f)
+        except OSError:
+            pass  # read-only workdir: the in-memory sketch still serves
 
     # -- shape ---------------------------------------------------------------
     @property
@@ -290,6 +337,48 @@ class DiskJoinIndex:
 
     def _tracer(self):
         return self.tracer if self.tracer is not None else get_tracer()
+
+    # -- cost-based planning ---------------------------------------------------
+    @property
+    def estimator(self) -> CardinalityEstimator:
+        """The session's cardinality estimator (``repro_torch.plan``),
+        backed by the persisted per-bucket sketch. An index without one
+        gets a one-time lazy rebuild from the bucketed store (with a
+        warning), re-persisted so the cost is paid once per index."""
+        with self._estimator_lock:
+            if self._estimator is None:
+                if os.path.exists(self._sketch_path):
+                    self._estimator = CardinalityEstimator.load(
+                        self._sketch_path)
+                else:
+                    warnings.warn(
+                        f"index at {self.workdir} predates planner "
+                        f"sketches; rebuilding the cardinality sketch "
+                        f"from the bucketed store (one-time, "
+                        f"{self.meta.num_buckets} bucket reads)",
+                        stacklevel=2)
+                    self._estimator = CardinalityEstimator.sample_bucketed(
+                        self.store, self.meta.sizes,
+                        seed=self.build_config.seed)
+                    try:
+                        self._estimator.save(self._sketch_path)
+                    except OSError:
+                        pass  # read-only workdir
+                    else:
+                        self._note_sketch_in_manifest()
+            return self._estimator
+
+    def _planner_for(self, cfg: JoinConfig) -> Planner:
+        """A planner bound to this session's estimator and a cost model
+        calibrated from the session's telemetry, this call's emulation
+        knobs and the session device's static constants. Cheap to build
+        per call — the emulated link/latency may differ between calls.
+        The port has no metrics registry yet: counters go to the
+        session's ``PipelineStats`` only."""
+        cost = CostModel.from_telemetry(cfg, self.stats.snapshot(),
+                                        device=self.device)
+        return Planner(self.estimator, cost, tracer=self._tracer(),
+                       metrics=None, pstats=self.stats)
 
     # -- config resolution ---------------------------------------------------
     def _resolve(self, overrides: dict) -> JoinConfig:
@@ -313,10 +402,6 @@ class DiskJoinIndex:
         else:
             query = dataclasses.replace(self.query_defaults, **overrides)
         cfg = merge_config(self.build_config, query)
-        if cfg.io_mode == "prefetch":
-            raise _not_ported("io_mode='prefetch'", "prefetch I/O")
-        if cfg.plan_mode == "on":
-            raise _not_ported("plan_mode='on'", "the planner")
         self.store.read_latency_s = cfg.emulate_read_latency_s
         return cfg
 
@@ -350,18 +435,30 @@ class DiskJoinIndex:
 
     # -- session buffer pool --------------------------------------------------
     def _ensure_pool(self, cfg: JoinConfig) -> BufferPool:
-        """The session's one BufferPool, created on first query: sized for
-        a batch join at these query params plus warm-cache headroom."""
+        """The session's one BufferPool: sized for a batch join at these
+        query params plus warm-cache headroom; created on first use.
+
+        With ``plan_mode="on"`` (and no explicit ``io_pool_slabs``) the
+        split between the join working set and the serving warm cache
+        comes from the planner's ``PoolPlan``."""
         with self._pool_lock:
             if self._pool is None:
                 cap_buckets = min(
                     resolve_cache_buckets(cfg, self.bucket_capacity,
                                           self.store.dim),
                     self.meta.num_buckets or 1)
-                slabs = cfg.io_pool_slabs
-                if slabs is None:
-                    slabs = cap_buckets + cfg.io_lookahead
-                slabs = max(slabs, cap_buckets + 1) + _WARM_RESERVE
+                if cfg.plan_mode == "on" and cfg.io_pool_slabs is None:
+                    pp = self._planner_for(cfg).plan_pool(
+                        cfg, cap_buckets, cfg.io_lookahead,
+                        self.stats.snapshot(), floor=_WARM_RESERVE)
+                    slabs = max(pp.num_slabs,
+                                cap_buckets + 1 + pp.warm_quota)
+                    self._warm_quota = pp.warm_quota
+                else:
+                    slabs = cfg.io_pool_slabs
+                    if slabs is None:
+                        slabs = cap_buckets + cfg.io_lookahead
+                    slabs = max(slabs, cap_buckets + 1) + _WARM_RESERVE
                 self._pool = BufferPool(slabs, self.bucket_capacity,
                                         self.store.dim)
             return self._pool
@@ -370,31 +467,86 @@ class DiskJoinIndex:
     def self_join(self, *, attribute_mask: np.ndarray | None = None,
                   **overrides) -> JoinResult:
         """ε-self-join over the built index. Query-time parameters
-        (``epsilon=…``, ``compute_mode=…``, ``memory_budget_bytes=…``, …)
-        are per-call overrides; bucketization is never repeated."""
+        (``epsilon=…``, ``io_mode=…``, ``compute_mode=…``,
+        ``memory_budget_bytes=…``, …) are per-call overrides;
+        bucketization is never repeated."""
         cfg = self._resolve(overrides)
         graph, graph_s, gkey = self._graph_for(cfg)
+        pool = (self._ensure_pool(cfg) if cfg.io_mode == "prefetch"
+                else None)
+        planner = (self._planner_for(cfg) if cfg.plan_mode == "on"
+                   else None)
         executor = JoinExecutor(self.store, self.meta, cfg,
                                 device=self.device,
                                 attribute_mask=attribute_mask,
-                                shared_stats=self.stats,
-                                tracer=self._tracer())
+                                shared_pool=pool, shared_stats=self.stats,
+                                tracer=self._tracer(), planner=planner)
         node_order = self._order_for(graph, cfg, executor.cache_buckets,
                                      gkey)
-        with self._warm_lock:
-            # the warm query slabs are dropped while a batch join runs
-            self._joins_active += 1
-            self._drop_warm_locked()
+        self._begin_join()
         try:
             result = executor.run(graph, node_order=node_order)
         finally:
-            with self._warm_lock:
-                self._joins_active -= 1
+            self._end_join()
         result.timings = finalize_timings(result.timings, graph_s)
         return result
 
-    def cross_join(self, other: "DiskJoinIndex", **overrides) -> JoinResult:
-        raise _not_ported("cross_join", "cross-join/bipartite")
+    def cross_join(self, other: "DiskJoinIndex", *,
+                   reorder_larger: bool = True,
+                   attribute_mask: np.ndarray | None = None,
+                   **overrides) -> JoinResult:
+        """Bipartite ε-join against another index (paper §3 extension),
+        verified on this session's device.
+
+        Result ids: this index's vectors keep their ids in
+        ``[0, self.num_vectors)``; ``other``'s are offset by
+        ``self.num_vectors``. ``attribute_mask`` is a
+        ``(self.num_vectors + other.num_vectors,)`` bool array over that
+        combined id space — pairs survive only if both endpoints pass.
+        ``reorder_larger=True`` streams the larger side in schedule order
+        and caches the smaller (the paper's DiskJoin1); False flips it.
+        """
+        cfg = self._resolve(overrides)
+        n_x, n_y = self.num_vectors, other.num_vectors
+        if attribute_mask is not None:
+            attribute_mask = np.asarray(attribute_mask, dtype=bool)
+            if attribute_mask.shape != (n_x + n_y,):
+                raise ValueError(
+                    f"attribute_mask must cover the combined id space "
+                    f"({n_x + n_y},), got {attribute_mask.shape}")
+        big_first = n_x >= n_y
+        if not reorder_larger:
+            big_first = not big_first
+        drive, cached = (self, other) if big_first else (other, self)
+        drive_is_x = drive is self
+        # session pool as for self_join; the executor falls back to a
+        # private pool when the combined bucket capacity doesn't fit it
+        pool = (self._ensure_pool(cfg) if cfg.io_mode == "prefetch"
+                else self._pool)
+        self._begin_join()
+        try:
+            result, graph_s = bipartite_join(
+                drive.store, drive.meta, cached.store, cached.meta, cfg,
+                device=self.device,
+                drive_id_offset=0 if drive_is_x else n_x,
+                cache_id_offset=n_x if drive_is_x else 0,
+                attribute_mask=attribute_mask,
+                shared_pool=pool, shared_stats=self.stats)
+        finally:
+            self._end_join()
+        result.timings = finalize_timings(result.timings, graph_s)
+        return result
+
+    def _begin_join(self) -> None:
+        # batch joins take the executor's liveness floor on the shared
+        # pool; warm query slabs are dropped so they can never starve it
+        with self._warm_lock:
+            self._joins_active += 1
+            self._drop_warm_locked()
+
+    def _end_join(self) -> None:
+        with self._warm_lock:
+            self._joins_active -= 1
 
     def attach_live(self, **kw):
         raise _not_ported("attach_live (live observability)", "serving")
@@ -488,6 +640,20 @@ class DiskJoinIndex:
             for b in ids:
                 probe.setdefault(int(b), []).append(qi)
 
+        # wave plan (plan_mode="on"): k_cap for the device query path
+        # from the estimate's upper bound, and the host/device resolution
+        # for compute_mode="auto"
+        wplan = None
+        compute = cfg.compute_mode
+        if cfg.plan_mode == "on":
+            wplan = self._planner_for(cfg).plan_wave(
+                Q, per_q, self.meta, cfg, self.bucket_capacity,
+                warm=set(self.warm_buckets()))
+            if compute == "auto":
+                compute = wplan.compute_mode
+        elif compute == "auto":  # unreachable via config validation
+            compute = "host"
+
         # mid-execution cancellation: a query found cancelled stays
         # cancelled (deadlines only ever recede into the past)
         dead: set[int] = set()
@@ -535,9 +701,10 @@ class DiskJoinIndex:
                     acc_d[qi].append(np.sqrt(d2[row][m])
                                      .astype(np.float32))
 
-        if cfg.compute_mode == "device":
-            verify = self._make_device_verify(Q, probe, eps, acc_ids, acc_d,
-                                              live_rows=live_rows)
+        if compute == "device":
+            verify = self._make_device_verify(
+                Q, probe, eps, acc_ids, acc_d, live_rows=live_rows,
+                k_cap_init=(wplan.k_cap if wplan is not None else None))
         skip = None
         if cancel is not None:
             def skip(b: int) -> bool:
@@ -556,18 +723,23 @@ class DiskJoinIndex:
         return out
 
     def _make_device_verify(self, Q: np.ndarray, probe: dict, eps: float,
-                            acc_ids: list, acc_d: list, live_rows=None):
+                            acc_ids: list, acc_d: list, live_rows=None,
+                            k_cap_init: int | None = None):
         """Device verify for a probe wave (``compute_mode="device"``): the
         wave's query block crosses H2D ONCE, each probed bucket's padded
         slab once, and the verify kernel's E = 1 launch plus the
         compaction hand back (query row, bucket row, distance) triples —
-        no per-bucket host distance matrix."""
+        no per-bucket host distance matrix.
+
+        ``k_cap_init`` seeds the compaction capacity from the wave plan's
+        estimate upper bound (``plan_mode="on"``) instead of the fixed
+        256; the overflow re-dispatch stays as the fallback."""
         cap = self.bucket_capacity
         dev = self.device
         q_dev = to_device(Q, dev)                       # staged ONCE
         self.stats.add("h2d_transfers", 1)
         self.stats.add("h2d_bytes", int(Q.nbytes))
-        state = {"first": True, "k_cap": 256}
+        state = {"first": True, "k_cap": int(k_cap_init or 256)}
 
         def verify(b: int, vecs: np.ndarray, ids_: np.ndarray,
                    n: int) -> None:
@@ -683,6 +855,16 @@ class DiskJoinIndex:
                 warm_hits += 1
         if warm_hits:
             self.stats.add("query_warm_hits", warm_hits)
+        if not misses:
+            return
+        if cfg.io_mode == "prefetch" and len(misses) > 1:
+            self._read_misses_prefetch(misses, cfg, pool, verify,
+                                       skip=skip)
+        else:
+            self._read_misses_sync(misses, cfg, pool, verify, skip=skip)
+
+    def _read_misses_sync(self, misses: list[int], cfg: JoinConfig,
+                          pool: BufferPool, verify, skip=None) -> None:
         tr = self._tracer()
         for b in misses:
             if skip is not None and skip(b):
@@ -723,14 +905,44 @@ class DiskJoinIndex:
             finally:
                 self._retain_or_release(b, slot, n, pool)
 
+    def _read_misses_prefetch(self, misses: list[int], cfg: JoinConfig,
+                              pool: BufferPool, verify, skip=None) -> None:
+        """Batch-friendly path: a schedule prefetcher overlaps the misses'
+        reads (per-device queues, batching/coalescing as configured; its
+        threads read with numpy only). The prefetcher was told the full
+        miss list, so mid-wave cancellation here skips only the verify
+        fan-out — the slab still lands (and stays warm for later waves)."""
+        pf = SchedulePrefetcher(
+            self.store, misses, pool, lookahead=cfg.io_lookahead,
+            num_threads=cfg.io_threads, stats=self.stats,
+            pad_value=PAD_COORD, batch_reads=cfg.io_batch_reads,
+            coalesce=cfg.io_coalesce, close_pool=False,
+            tracer=self._tracer(), retries=cfg.io_retries,
+            retry_backoff_s=cfg.io_retry_backoff_s)
+        try:
+            for _ in misses:
+                b, slot, n = pf.pop_next()
+                self.stats.add("query_reads", 1)
+                try:
+                    if skip is None or not skip(b):
+                        verify(b, pool.vecs(slot), pool.ids(slot), n)
+                finally:
+                    self._retain_or_release(b, slot, n, pool)
+        finally:
+            pf.close()
+
     # -- warm query cache -----------------------------------------------------
     def _retain_or_release(self, b: int, slot: int, rows: int,
                            pool: BufferPool) -> None:
         """Keep a freshly-read slab warm for later queries when no batch
-        join runs and headroom remains; else release it."""
+        join runs and headroom remains; else release it. The warm
+        capacity is the planner's ``PoolPlan`` share when one sized this
+        pool, else all but the reserve."""
         with self._warm_lock:
+            cap = (self._warm_quota if self._warm_quota is not None
+                   else pool.num_slabs - _WARM_RESERVE)
             if (self._joins_active == 0 and b not in self._warm
-                    and len(self._warm) < pool.num_slabs - _WARM_RESERVE):
+                    and len(self._warm) < cap):
                 self._warm[b] = (slot, rows)
                 return
         pool.unpin(slot)

@@ -21,6 +21,7 @@ from repro_torch.core.bucket_graph import (  # noqa: E402
     build_bucket_graph as tgraph)
 from repro_torch.core.types import JoinConfig  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
+from torch_parity import assert_same_file  # noqa: E402
 
 CPU = torch.device("cpu")
 # the modules (each package's ``core`` exports a function of the same name)
@@ -154,10 +155,29 @@ def test_bucket_graph_matches_jax(small_dataset, tmp_path):
 
 
 def test_bucketize_rejects_striping(tmp_path):
-    x = np.zeros((64, 8), np.float32)
-    store = FlatVectorStore.from_array(str(tmp_path / "s.bin"), x)
-    with pytest.raises(NotImplementedError, match="striping"):
-        tbucketize(store, str(tmp_path / "b"),
-                             JoinConfig(epsilon=0.1, io_devices=2),
-                             device=CPU)
-
+    """The striped writer (``io_devices > 1``): the port's bucketize
+    writes the JAX package's per-device files (byte for byte but the
+    radii, see ``assert_same_file``), with and without a layout order and
+    coalescing's chunked striping."""
+    x = np.random.default_rng(3).normal(size=(500, 8)).astype(np.float32)
+    for coalesce in (False, True):
+        kw = dict(epsilon=0.1, io_devices=3, io_coalesce=coalesce,
+                  pad_align=64, num_buckets=9)
+        tag = f"c{int(coalesce)}"
+        order = (lambda meta: np.arange(meta.num_buckets)[::-1].copy()) \
+            if coalesce else None
+        tstore, tmeta, _ = tbucketize(
+            FlatVectorStore.from_array(str(tmp_path / f"{tag}t.bin"), x),
+            str(tmp_path / f"{tag}tb"), JoinConfig(**kw), device=CPU,
+            layout_order_fn=order)
+        jstore, jmeta, _ = jbucketize(
+            JFlat.from_array(str(tmp_path / f"{tag}j.bin"), x),
+            str(tmp_path / f"{tag}jb"), JJoinConfig(**kw),
+            layout_order_fn=order)
+        assert tstore.num_devices == jstore.num_devices > 1
+        assert np.array_equal(tmeta.sizes, jmeta.sizes)
+        for suffix in [".meta", ".centers.npy", ".radii.npy"] + [
+                f".d{d}{e}" for d in range(tstore.num_devices)
+                for e in ("", ".ids", ".meta")]:
+            assert_same_file(str(tmp_path / f"{tag}tb") + suffix,
+                             str(tmp_path / f"{tag}jb") + suffix)

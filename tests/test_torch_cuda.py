@@ -321,6 +321,122 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
             assert abs(d2 - eps * eps) <= 1e-4
 
 
+def _assert_tc_verify_only():
+    verify_launches = (ops.LAUNCHES["verify_pairs_batch"]
+                       + ops.LAUNCHES["pairwise_l2_threshold"])
+    assert verify_launches > 0
+    assert ops.LAUNCHES["verify_simt"] == 0
+    assert ops.LAUNCHES["verify_tc"] == verify_launches, ops.LAUNCHES
+
+
+def _small_index(tmp_path, name, **kw):
+    x = clustered_vectors(4000, 32, seed=5)
+    eps = epsilon_for_avg_neighbors(x, 10)
+    cfg = JoinConfig(epsilon=eps, pad_align=64, num_buckets=24,
+                     memory_budget_bytes=1 << 20, **kw)
+    store = FlatVectorStore.from_array(str(tmp_path / f"{name}.bin"), x)
+    return x, eps, DiskJoinIndex.build(store, cfg, str(tmp_path / name))
+
+
+def _identical(a, b):
+    assert np.array_equal(a.pairs, b.pairs)
+    assert np.array_equal(a.distances, b.distances)
+
+
+def test_prefetch_matches_sync_on_card(cuda, tmp_path):
+    """Prefetch I/O with emulated read latency (the prefetcher runs
+    ahead): host and device modes give the sync host join's bytes, every
+    verify launch on the tensor-core route."""
+    x, eps, index = _small_index(tmp_path, "i", emulate_read_latency_s=2e-4)
+    with index:
+        ref_ = index.self_join()
+        ops.reset_launches()
+        for mode in ("host", "device"):
+            r = index.self_join(io_mode="prefetch", compute_mode=mode)
+            _identical(ref_, r)
+            assert r.io_stats["pipeline"]["loads"] == r.bucket_loads
+        _assert_tc_verify_only()
+        Q = x[:30] + np.float32(1e-3)
+        q_sync = index.query_batch(Q)
+        index.drop_warm_cache()
+        q_pre = index.query_batch(Q, io_mode="prefetch", plan_mode="on",
+                                  compute_mode="device")
+        for qi, ((a, _), (b, _)) in enumerate(zip(q_sync, q_pre)):
+            assert qi in set(b.tolist())
+            for v in set(a.tolist()) ^ set(b.tolist()):
+                d2 = ((x[v].astype(np.float64) - Q[qi]) ** 2).sum()
+                assert abs(d2 - eps * eps) <= 1e-4
+
+
+def test_auto_mixed_plan_matches_host_on_card(cuda, tmp_path, monkeypatch):
+    """compute_mode="auto" with a plan that mixes the engines on the card.
+    The card's own constants send every unit to the device engine at any
+    emulated link rate (its cost a cell is a hundredth of the host
+    engine's), so the plan is priced with the CPU's static tier, where an
+    emulated 30 GB/s link splits it. The mixed join (prefetch, a cache of
+    a few buckets and slow reads, so the routed engine's stall flush runs)
+    gives the host join's bytes, every verify launch on the tensor-core
+    route, and returns every pin."""
+    from repro_torch.plan import CostModel
+    cpu_tier = CostModel.for_device("cpu")
+    monkeypatch.setattr(CostModel, "for_device", classmethod(
+        lambda cls, device=None: dataclasses.replace(
+            cpu_tier, provenance=dict(cpu_tier.provenance))))
+    x, eps, index = _small_index(tmp_path, "i")
+    slow = dict(memory_budget_bytes=1 << 17, emulate_read_latency_s=5e-3)
+    with index:
+        host = index.self_join(**slow)
+        ops.reset_launches()
+        r = index.self_join(plan_mode="on", compute_mode="auto",
+                            emulate_xfer_gb_s=30.0, io_mode="prefetch",
+                            **slow)
+        _assert_tc_verify_only()
+        assert r.plan.compute_mode == "mixed"
+        assert r.io_stats["pipeline"]["flush_on_stall"] > 0
+        _identical(host, r)
+        assert index._pool.in_use == 0
+
+
+def test_striped_build_and_join_on_card(cuda, tmp_path):
+    _, _, plain = _small_index(tmp_path, "p")
+    ops.reset_launches()
+    _, _, striped = _small_index(tmp_path, "s", io_devices=4,
+                                 io_batch_reads=True, io_coalesce=True)
+    with plain, striped:
+        assert striped.store.num_devices == 4
+        assert ops.LAUNCHES["assign_tc"] == ops.LAUNCHES["bucket_assign"] > 0
+        base = plain.self_join()
+        for kw in (dict(), dict(io_mode="prefetch", compute_mode="device")):
+            _identical(base, striped.self_join(**kw))
+        r = plain.cross_join(striped, io_mode="prefetch",
+                             compute_mode="device")
+        assert r.pairs.shape[0] > 0
+        _identical(r, plain.cross_join(striped))
+
+
+def test_center_index_above_crossover_matches_cpu(cuda):
+    """Scan 2 above the reference's crossover goes through the IVF index:
+    its assign on the card equals the CPU's at 8,192 rows × 65,537
+    centers, except on float32 ties (two centers whose float64 d² lie
+    within 2^-20 |x|² of each other)."""
+    from repro_torch.core.center_index import IVFCenterIndex, \
+        make_center_index
+    data = clustered_vectors(8192 + 65_537, 128, seed=11)
+    x, centers = data[:8192], data[8192:]
+    on_card = make_center_index(centers, device=cuda)
+    on_cpu = make_center_index(centers, device=torch.device("cpu"))
+    assert isinstance(on_card, IVFCenterIndex)
+    d_card, i_card = on_card.assign(x)
+    d_cpu, i_cpu = on_cpu.assign(x)
+    same = i_card == i_cpu
+    np.testing.assert_allclose(d_card[same], d_cpu[same], **D2_TOL)
+    x64, c64 = x[~same].astype(np.float64), centers.astype(np.float64)
+    gap = (((x64 - c64[i_card[~same]]) ** 2).sum(1)
+           - ((x64 - c64[i_cpu[~same]]) ** 2).sum(1))
+    assert (np.abs(gap) <= 2.0 ** -20 * (x64 * x64).sum(1)).all(), \
+        f"{int((~same).sum())} rows differ"
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 (host and device) → ``query_batch`` (host and device) — against the JAX
 package's ``DiskJoinIndex`` on the same data and config, plus the on-disk
 index opening across the two packages."""
+import os
+
 import numpy as np
 import pytest
 
@@ -14,31 +16,12 @@ from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core.join import similarity_self_join  # noqa: E402
 from repro_torch.data import brute_force_pairs  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
+from torch_parity import (assert_identical, assert_same_file,  # noqa: E402
+                          assert_same_pairs)
 
 BASE = dict(pad_align=64, num_buckets=24, memory_budget_bytes=1 << 20)
 EVENT_COUNTERS = ("h2d_transfers", "h2d_transfers_saved", "device_slab_hits",
                   "device_batches", "device_compact_overflows")
-
-
-def _boundary(x, pairs, eps, tol=1e-4):
-    """Pairs whose float64 d² lies within ``tol`` of ε²."""
-    if not pairs:
-        return set()
-    p = np.asarray(sorted(pairs))
-    d2 = ((x[p[:, 0]].astype(np.float64) - x[p[:, 1]]) ** 2).sum(1)
-    return {tuple(q) for q in p[np.abs(d2 - eps * eps) <= tol].tolist()}
-
-
-def assert_same_pairs(x, eps, port, ref):
-    """Pair sets equal except ε-boundary pairs; distances of common pairs
-    allclose."""
-    a = {tuple(p): d for p, d in zip(port.pairs.tolist(), port.distances)}
-    b = {tuple(p): d for p, d in zip(ref.pairs.tolist(), ref.distances)}
-    assert set(a) ^ set(b) <= _boundary(x, set(a) ^ set(b), eps)
-    common = sorted(set(a) & set(b))
-    assert len(common) > 0
-    np.testing.assert_allclose([a[k] for k in common], [b[k] for k in common],
-                               rtol=1e-4, atol=1e-3)
 
 
 @pytest.fixture(scope="module")
@@ -202,19 +185,56 @@ def test_one_shot_self_join_matches_session(tmp_path, small_dataset):
 @pytest.mark.parametrize("override,item", [
     (dict(io_mode="prefetch"), "prefetch"),
     (dict(plan_mode="on", compute_mode="auto"), "planner"),
+    (dict(io_mode="prefetch", plan_mode="on", compute_mode="device"),
+     "prefetch-planner"),
 ])
 def test_unported_options_raise(built, override, item):
-    _, _, port, _, _ = built
-    with pytest.raises(NotImplementedError, match=item):
-        port.self_join(**override)
+    """Prefetch I/O and the planner, alone and together: the port's join
+    matches the JAX package's under the same options, and its own default
+    join byte for byte (they change when reads happen and how work is
+    sized, never the result)."""
+    x, eps, port, ref, _ = built
+    t = port.self_join(**override)
+    assert_identical(t, port.self_join())
+    j = ref.self_join(**override)
+    assert_same_pairs(x, eps, t, j)
+    assert t.bucket_loads == j.bucket_loads
+    assert t.num_distance_computations == j.num_distance_computations
+    if "plan_mode" in override:
+        assert (t.plan.pair_cap, t.plan.compute_mode, t.plan.unit_params) \
+            == (j.plan.pair_cap, j.plan.compute_mode, j.plan.unit_params)
+    if override.get("io_mode") == "prefetch":
+        assert t.io_stats["pipeline"]["loads"] == t.bucket_loads
+
+
+def _store_files(prefix):
+    d, base = os.path.split(str(prefix))
+    return sorted(f for f in os.listdir(d) if f.startswith(base))
 
 
 def test_unported_build_options_raise(tmp_path):
-    x = np.zeros((64, 8), np.float32)
-    store = FlatVectorStore.from_array(str(tmp_path / "x.bin"), x)
-    with pytest.raises(NotImplementedError, match="striping"):
-        DiskJoinIndex.build(store, JoinConfig(epsilon=0.1, io_devices=2),
-                            str(tmp_path / "i"), device="cpu")
+    """A striped build (``io_devices > 1``) writes the JAX package's files
+    (byte for byte but the radii, see ``assert_same_file``), and the two
+    indexes join alike."""
+    x = np.random.default_rng(8).normal(size=(700, 8)).astype(np.float32)
+    cfg = dict(epsilon=1.0, io_devices=2, pad_align=64, num_buckets=8,
+               memory_budget_bytes=1 << 20)
+    port = DiskJoinIndex.build(
+        FlatVectorStore.from_array(str(tmp_path / "x.bin"), x),
+        JoinConfig(**cfg), str(tmp_path / "i"), device="cpu")
+    ref = JIndex.build(JFlat.from_array(str(tmp_path / "j.bin"), x),
+                       JJoinConfig(**cfg), str(tmp_path / "j"))
+    try:
+        assert port.store.num_devices == 2
+        files = _store_files(tmp_path / "i" / "buckets")
+        assert files == _store_files(tmp_path / "j" / "buckets")
+        assert any(".d1" in f for f in files)
+        for f in files:
+            assert_same_file(tmp_path / "i" / f, tmp_path / "j" / f)
+        assert_same_pairs(x, 1.0, port.self_join(), ref.self_join())
+    finally:
+        port.close()
+        ref.close()
 
 
 def test_coalesced_layout_build_matches_jax(tmp_path, small_dataset):
