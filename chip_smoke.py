@@ -53,11 +53,37 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    shape and its fixed cost; ``plan/cost_model.py``) and the IVF center
    index's assign above the crossover (8,192 rows × 65,537 centers) on the
    card against the CPU.
-5. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
+5. ``[serve]``, on the same 1M index (launch counts zeroed just before):
+   the 1,000 queries through ``VectorQueryService`` one at a time, then
+   again under ``attach_live`` with a p95 latency objective (warm hits;
+   the rollup must count each query; ``query_batch``'s memberships but
+   for ε-boundary rows; the dashboard logged); fig22's burst (4,096
+   requests at t = 0 from 8 threads, 70% near 16 hot anchors, N(0, 0.01)
+   noise, a 30 s deadline) through ``QueryScheduler`` with and without
+   probe sharing (sharing must save reads; reads a request logged), then
+   its first 256 requests through both policies without a deadline
+   (sharing must read less on the same requests, all answered); every
+   answer holds the query contract against ``query_batch``; an
+   ``IndexRouter`` over two replica sessions of the 1M workdir, one
+   killed (the same answers, byte for byte, through the other) and
+   restarted by ``ReplicaSupervisor`` on the card; 4 spatial
+   shards of 250,000 rows behind one router (recall against float64
+   ≥ 0.88, no member outside ε beyond the boundary band); a residency
+   snapshot and a warm ``reopen`` (the snapshot's buckets warm, each a
+   hit for the first 64 queries, the cold session's bytes). Every verify
+   launch of the phase takes the tensor-core route.
+6. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
    sync and prefetch I/O, and a second build striped over 4 devices with
    coalescing; every join (device mode in each I/O × striping corner)
-   gives the plain sync host join's bytes.
-6. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
+   gives the plain sync host join's bytes. The prefetch join again under
+   ``trace_session``: its bytes, exported as a Chrome trace
+   (``hidden_fraction(io.read, io.wait)`` logged beside the untraced
+   join's time). A device join with every verify launch forced onto
+   the CUDA-core route (``pairwise_l2.cu``): each pair in its difference
+   from the tensor-core join lies within 1e-2 of ε² in float64. A resumable build killed after its assign
+   scan, then resumed: no rescan, and the uninterrupted build's bucket
+   files and join bytes.
+7. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
    max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
    32 new tokens each, no EOS: two waves), then ``prefill`` runs on
@@ -75,8 +101,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
 before printing any result. The sizes are fixed (``N_MAIN`` …); the only
-option, ``--profile``, adds a traced repeat of the device-mode join and
-traced LM decode steps.
+option, ``--profile``, adds a traced repeat of the device-mode join,
+profiled point queries one at a time and traced LM decode steps.
 """
 from __future__ import annotations
 
@@ -88,6 +114,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -101,16 +128,23 @@ from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core import center_index  # noqa: E402
+from repro_torch.core.index import RESIDENCY_NAME  # noqa: E402
 from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
+from repro_torch.ft import FaultInjector, InjectedKill  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.obs import Slo, dash, trace_session  # noqa: E402
 from repro_torch.plan import cost_model  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import (DOWN, HEALTHY,  # noqa: E402
+                               DeadlineExceeded, IndexRouter,
+                               QueryScheduler, ReplicaSupervisor,
+                               ServeEngine, VectorQueryService,
+                               order_result)
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
@@ -126,6 +160,13 @@ N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
 N_CROSS = 100_000       # the cross-join's second side: near-duplicates
+N_SERVE_REQUESTS = 4096  # fig22's burst: every request at t = 0
+N_SAME_REQUESTS = 256   # its head, served by both policies, none dropped
+SERVE_SUBMITTERS = 8
+N_HOT_ANCHORS = 16
+N_REPLICA_ANSWERS = 64
+N_SHARDS = 4            # 250,000 rows each
+N_PROFILE_QUERIES = 50  # --profile: point queries per profiled pass
 JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
                 "bucket_assign")
 LM_ARCH = "qwen3-0.6b"
@@ -238,26 +279,45 @@ def check_join_output(x: np.ndarray, eps: float, res) -> None:
     check(d.max() <= eps * (1 + 1e-5) + 1e-6, "a distance exceeds eps")
 
 
-def check_query_agreement(x, Q, src, eps, host, dev):
-    """Memberships of the two modes agree except on ε-boundary pairs, and
-    (nearly) every query finds the row it was drawn next to (the pruning
-    is probabilistic). Returns (members, boundary, found)."""
-    members = boundary = found = 0
+def ordered(answers) -> list:
+    """(ids, distances) pairs in the scheduler's order: distance, then id."""
+    return [order_result(i, d, None) for i, d in answers]
+
+
+def check_query_agreement(x, Q, src, eps, a, b, what: str = "query"):
+    """The query contract between two answer lists of the same queries:
+    finite distances within ε; the same members except ε-boundary rows
+    (float64 d² within 1e-4 of ε²); distances of common members within
+    1e-3; and, where ``src`` is given, (nearly) every query finds the row
+    it was drawn next to (the pruning is probabilistic). Counts members
+    (of ``a``), boundary differences, queries that found their row (None
+    without ``src``) and answers whose bytes differ after ordering."""
+    members = boundary = found = byte_diff = 0
     eps2 = float(eps) * float(eps)
-    for qi, ((hi, hd), (di, dd)) in enumerate(zip(host, dev)):
-        check(np.isfinite(hd).all() and np.isfinite(dd).all(),
-              f"query {qi} distances")
-        check((hd <= eps * (1 + 1e-5) + 1e-6).all(), f"query {qi} > eps")
-        found += int(src[qi] in set(hi.tolist()))
+    for qi, ((ai, ad), (bi, bd)) in enumerate(zip(ordered(a), ordered(b))):
+        check(np.isfinite(ad).all() and np.isfinite(bd).all(),
+              f"{what} {qi} distances")
+        check((ad <= eps * (1 + 1e-5) + 1e-6).all(), f"{what} {qi} > eps")
+        if not (np.array_equal(ai, bi) and np.array_equal(ad, bd)):
+            byte_diff += 1
+        if src is not None:
+            found += int(src[qi] in set(ai.tolist()))
         q64 = Q[qi].astype(np.float64)
-        for v in set(hi.tolist()) ^ set(di.tolist()):
+        for v in set(ai.tolist()) ^ set(bi.tolist()):
             d2 = ((x[v].astype(np.float64) - q64) ** 2).sum()
             check(abs(d2 - eps2) <= 1e-4 * max(1.0, eps2),
-                  f"query {qi} member {v} off the boundary (d2 {d2})")
+                  f"{what} {qi} member {v} off the boundary (d2 {d2})")
             boundary += 1
-        members += hi.size
-    check(found >= 0.99 * len(host), f"{found} queries found their row")
-    return members, boundary, found
+        da, db = dict(zip(ai.tolist(), ad)), dict(zip(bi.tolist(), bd))
+        check(all(abs(da[k] - db[k]) <= 1e-3 for k in da if k in db),
+              f"{what} {qi}: distances of common members differ")
+        members += ai.size
+    if src is None:
+        found = None
+    else:
+        check(found >= 0.99 * len(a), f"{found} queries found their row")
+    return dict(members=members, boundary=boundary, found=found,
+                byte_diff=byte_diff)
 
 
 def phase_main_path(workdir: str) -> dict:
@@ -319,8 +379,7 @@ def phase_main_path(workdir: str) -> dict:
                                            replace=False)
     rec, n_truth = brute_force_recall(x, eps, res.pairs, rows)
     t["recall_check"] = time.perf_counter() - t0
-    members, boundary, found = check_query_agreement(x, Q, src, eps, q_host,
-                                                     q_dev)
+    agree = check_query_agreement(x, Q, src, eps, q_host, q_dev)
     pipe = res.io_stats["pipeline"]
     bt = index.build_timings
     log(f"[main] build timings {bt}; the assign scan {bt['assign']:.3f} s "
@@ -341,9 +400,9 @@ def phase_main_path(workdir: str) -> dict:
         "d2h_bytes", "d2h_overlap_s", "loads", "io_wait_s", "compute_s")}))
     log(f"[main] recall {rec!r} on {n_truth} true pairs touching "
         f"{n_recall} rows (need >= 0.88)")
-    log(f"[main] queries {n_queries}: {members} members, {boundary} "
-        f"host/device differences, all on the eps boundary; {found} found "
-        f"their source row")
+    log(f"[main] queries {n_queries}: {agree['members']} members, "
+        f"{agree['boundary']} host/device differences, all on the eps "
+        f"boundary; {agree['found']} found their source row")
     log(f"[main] phase seconds {json.dumps(t)}")
     check(rec >= 0.88, f"recall {rec} < 0.88")
 
@@ -717,6 +776,64 @@ def phase_profile(index) -> None:
         log(f"[profile] {us / 1e3:10.2f} ms  {n:6d} x  {key[:90]}")
 
 
+def profile_queries(index, Q: np.ndarray) -> None:
+    """Where a point query's time goes, one query at a time (the query
+    service's pattern): probes a query and ms a query in device and host
+    mode; then, for the device mode, the host's own time by function
+    (cProfile) and the kernel launches and device time a probed bucket
+    (torch.profiler). Only with ``--profile``."""
+    import cProfile
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = N_PROFILE_QUERIES
+    probes = [len(p) for p in index.plan_probes(Q[:n])]
+    ms = {}
+    for mode in ("device", "host"):
+        index.drop_warm_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in Q[:n]:
+            index.query_batch(q[None], compute_mode=mode)
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) / n * 1e3
+    log(f"[profile] point queries one at a time ({n}): {np.mean(probes):.2f} "
+        f"probed buckets a query (p50 {np.percentile(probes, 50):.0f}, p95 "
+        f"{np.percentile(probes, 95):.0f}); device mode {ms['device']:.2f} "
+        f"ms a query, host mode {ms['host']:.2f} ms")
+    index.drop_warm_cache()
+    prof = cProfile.Profile()
+    prof.enable()
+    for q in Q[n:2 * n]:
+        index.query_batch(q[None], compute_mode="device")
+    prof.disable()
+    st = pstats.Stats(prof)
+    total = sum(v[2] for v in st.stats.values())
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:10]
+    log(f"[profile] host time by function, device mode ({n} queries, "
+        f"{total:.3f} s under cProfile):")
+    for (path, line, fn), (_, calls, tot, cum, _) in top:
+        log(f"[profile] {tot:8.3f} s own {cum:8.3f} s cum {calls:7d} x  "
+            f"{os.path.basename(path)}:{line}({fn})")
+    index.drop_warm_cache()
+    buckets = sum(len(p) for p in index.plan_probes(Q[2 * n:3 * n]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        for q in Q[2 * n:3 * n]:
+            index.query_batch(q[None], compute_mode="device")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = tprof.key_averages()
+    launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    busy = sum(e.self_device_time_total for e in ev
+               if e.device_type == DeviceType.CUDA) / 1e6
+    log(f"[profile] device mode, {n} queries, {buckets} probed buckets: "
+        f"{launches / buckets:.1f} kernel launches and "
+        f"{busy / buckets * 1e3:.4f} ms of device time a bucket; busy "
+        f"share {busy / wall:.3f} of {wall:.3f} s (traced)")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the I/O pipeline, the planner, the cross-join (1M index)
 # ---------------------------------------------------------------------------
@@ -931,6 +1048,43 @@ def ivf_assign_timing(store) -> dict:
                 tie_rows=int((~same).sum()))
 
 
+AUTO = dict(io_mode="prefetch", plan_mode="on", compute_mode="auto")
+
+
+def planned_join(index, ref, tag: str) -> dict:
+    """The join with the planner (prefetch, ``compute_mode="auto"``):
+    byte-identical to ``ref``, every verify launch on the tensor-core
+    route, no compaction overflow; logs the plan. Returns its launches."""
+    cost = index._planner_for(index._resolve(dict(AUTO))).cost
+    log(f"[{tag}] cost model: {cost.describe()}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    planned = index.self_join(**AUTO)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    verify_launches_all_tc(launches, "planned join")
+    check_identical(ref, planned, "planned auto vs sync join")
+    plan = planned.plan
+    routes = {r: sum(1 for rt, _ in plan.unit_params if rt == r)
+              for r in ("host", "device")}
+    batches = sorted({b for _, b in plan.unit_params})
+    overflows = planned.io_stats["pipeline"]["device_compact_overflows"]
+    log(f"[{tag}] planned join (prefetch, plan on, compute auto) "
+        f"{wall:.3f} s: byte-identical to the sync join; plan "
+        f"{plan.compute_mode}, units {plan.num_units} (host "
+        f"{routes['host']}, device {routes['device']}), pair_cap "
+        f"{plan.pair_cap}, verify batches {batches[0]}..{batches[-1]} "
+        f"({len(batches)} distinct), est pairs {plan.est_total:.4g} [hi "
+        f"{plan.hi_total:.4g}], device compaction overflows {overflows}; "
+        f"verify launches {launches['verify_pairs_batch']}, all tc")
+    log(f"[{tag}] planned  " + json.dumps(pipeline_line(planned)))
+    log(f"[{tag}] " + plan.explain().replace("\n", f"\n[{tag}] "))
+    check(overflows == 0, f"the planned join overflowed its pair_cap "
+          f"{overflows} times")
+    return launches
+
+
 def phase_io(main: dict, workdir: str) -> dict:
     """Prefetch I/O and the planner on the 1M index that the main path
     built (graph and node order cached), the prefetched and planned query
@@ -949,7 +1103,7 @@ def phase_io(main: dict, workdir: str) -> dict:
     pre = index.self_join(io_mode="prefetch", io_batch_reads=True)
     torch.cuda.synchronize()
     t["prefetch_join"] = time.perf_counter() - t0
-    launches_pre = dict(ops.LAUNCHES)
+    launches_pre = ops.launches_snapshot()
     verify_launches_all_tc(launches_pre, "prefetch join")
     check_identical(res, pre, "prefetch vs sync join")
     out["sync"], out["prefetch"] = pipeline_line(res), pipeline_line(pre)
@@ -960,39 +1114,9 @@ def phase_io(main: dict, workdir: str) -> dict:
     log("[io] prefetch " + json.dumps(out["prefetch"]))
 
     # 2. planned join, compute_mode="auto": byte-identical as well
-    auto = dict(io_mode="prefetch", plan_mode="on", compute_mode="auto")
-    cost = index._planner_for(index._resolve(dict(auto))).cost
-    log(f"[io] cost model: {cost.describe()}")
-    ops.reset_launches()
     t0 = time.perf_counter()
-    planned = index.self_join(**auto)
-    torch.cuda.synchronize()
+    launches_plan = planned_join(index, res, "io")
     t["planned_join"] = time.perf_counter() - t0
-    launches_plan = dict(ops.LAUNCHES)
-    verify_launches_all_tc(launches_plan, "planned join")
-    check_identical(res, planned, "planned auto vs sync join")
-    plan = planned.plan
-    routes = {r: sum(1 for rt, _ in plan.unit_params if rt == r)
-              for r in ("host", "device")}
-    batches = sorted({b for _, b in plan.unit_params})
-    overflows = planned.io_stats["pipeline"]["device_compact_overflows"]
-    out["planned"] = pipeline_line(planned)
-    out["plan"] = dict(compute_mode=plan.compute_mode, routes=routes,
-                       pair_cap=plan.pair_cap, units=plan.num_units,
-                       verify_batches=batches, overflows=overflows,
-                       est_pairs=plan.est_total, hi_pairs=plan.hi_total)
-    log(f"[io] planned join (prefetch, plan on, compute auto): "
-        f"byte-identical to the sync join; plan {plan.compute_mode}, "
-        f"units {plan.num_units} (host {routes['host']}, device "
-        f"{routes['device']}), pair_cap {plan.pair_cap}, verify batches "
-        f"{batches[0]}..{batches[-1]} ({len(batches)} distinct), est pairs "
-        f"{plan.est_total:.4g} [hi {plan.hi_total:.4g}], device compaction "
-        f"overflows {overflows}; verify launches "
-        f"{launches_plan['verify_pairs_batch']}, all tc")
-    log("[io] planned  " + json.dumps(out["planned"]))
-    log("[io] " + plan.explain().replace("\n", "\n[io] "))
-    check(overflows == 0, f"the planned join overflowed its pair_cap "
-          f"{overflows} times")
 
     # 3. prefetched, planned query waves: the sync waves' memberships
     ops.reset_launches()
@@ -1008,11 +1132,12 @@ def phase_io(main: dict, workdir: str) -> dict:
     launches_q = dict(ops.LAUNCHES)
     verify_launches_all_tc(launches_q, "prefetched query waves")
     for mode, sync in (("host", main["q_host"]), ("device", main["q_dev"])):
-        members, boundary, found = check_query_agreement(
-            x, Q, main["src"], eps, sync, q_out[mode])
+        agree = check_query_agreement(x, Q, main["src"], eps, sync,
+                                      q_out[mode])
         log(f"[io] query_batch {len(Q)} (prefetch, plan on, {mode}): "
-            f"{qt[mode]:.3f} s; {members} members, {boundary} differences "
-            f"from the sync {mode} wave, all on the eps boundary")
+            f"{qt[mode]:.3f} s; {agree['members']} members, "
+            f"{agree['boundary']} differences from the sync {mode} wave, "
+            f"all on the eps boundary")
     check_query_agreement(x, Q, main["src"], eps, q_out["host"],
                           q_out["device"])
     out["query_s"] = qt
@@ -1089,9 +1214,500 @@ def phase_io(main: dict, workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: byte parity at 100k: host/device x sync/prefetch x striping
+# phase 5: serving over the 1M index (scheduler, service, live, replicas)
 # ---------------------------------------------------------------------------
-def phase_parity(workdir: str) -> None:
+def fig22_requests(x: np.ndarray, n: int, rng) -> np.ndarray:
+    """fig22's request stream (``benchmarks/fig22_scheduler.py:47-57``):
+    70% of queries near one of 16 hot anchors, 30% roaming, plus
+    N(0, 0.01) noise."""
+    anchors = x[rng.choice(x.shape[0], N_HOT_ANCHORS, replace=False)]
+    hot = anchors[rng.integers(0, N_HOT_ANCHORS, n)]
+    roam = x[rng.choice(x.shape[0], n)]
+    pick = rng.random(n) < 0.7
+    q = np.where(pick[:, None], hot, roam)
+    return (q + rng.normal(scale=0.01, size=q.shape)).astype(np.float32)
+
+
+def serve_burst(index, reqs: np.ndarray, share: bool,
+                deadline_s: float | None) -> dict:
+    """All of ``reqs`` submitted at t = 0 from ``SERVE_SUBMITTERS``
+    threads to a fresh scheduler (fig22's wave settings), traced; returns
+    the answers (None for a request its deadline dropped, which is
+    counted, not an error), latencies, reads and waves."""
+    index.drop_warm_cache()
+    base = index.pipeline_snapshot()
+    answers = [None] * len(reqs)
+    lat = np.zeros(len(reqs))
+    go = threading.Barrier(SERVE_SUBMITTERS + 1)
+    with trace_session(ring_capacity=1 << 20) as tr:
+        sched = QueryScheduler(index, wave_size=32, max_wait_s=0.005,
+                               max_queue=len(reqs), share_probes=share)
+
+        def submitter(k):
+            go.wait()
+            futs = [(i, sched.submit(reqs[i], deadline_s=deadline_s))
+                    for i in range(k, len(reqs), SERVE_SUBMITTERS)]
+            for i, f in futs:
+                try:
+                    answers[i] = f.result(timeout=120)
+                except DeadlineExceeded:
+                    pass
+                lat[i] = f.latency_s
+
+        threads = [threading.Thread(target=submitter, args=(k,))
+                   for k in range(SERVE_SUBMITTERS)]
+        for th in threads:
+            th.start()
+        go.wait()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        sched.close()
+        snap = sched.snapshot()
+    pipe = index.pipeline_snapshot()
+    reads = sum(pipe[k] - base[k] for k in ("query_reads",
+                                            "query_fallback_reads"))
+    spans = sum(1 for e in tr.events() if e.get("name") == "serve.wave")
+    dropped = sum(a is None for a in answers)
+    check(dropped == snap["deadline_drops"], f"{dropped} requests without "
+          f"an answer, {snap['deadline_drops']} deadline drops")
+    answered = len(reqs) - dropped
+    check(answered > 0, "the burst answered no request")
+    return dict(answers=answers, wall_s=wall, waves=snap["waves"],
+                wave_spans=spans, reads=reads, answered=answered,
+                reads_per_query=reads / len(reqs),
+                reads_per_answer=reads / answered,
+                saved=pipe["reads_saved_by_sharing"]
+                - base["reads_saved_by_sharing"],
+                drops=snap["deadline_drops"],
+                p50_ms=float(np.percentile(lat, 50)) * 1e3,
+                p95_ms=float(np.percentile(lat, 95)) * 1e3)
+
+
+def pc1_split(x: np.ndarray, parts: int) -> list[np.ndarray]:
+    """Row ids of ``parts`` equal spatial slabs: sorted along the data's
+    first principal axis (float64 covariance on the card) and cut."""
+    xd = torch.from_numpy(x).cuda().double()
+    xc = xd - xd.mean(0)
+    _, vecs = torch.linalg.eigh(xc.T @ xc)
+    key = (xc @ vecs[:, -1]).cpu().numpy()
+    order = np.argsort(key, kind="stable")
+    return np.array_split(order, parts)
+
+
+def brute_force_members(x: np.ndarray, Q: np.ndarray, eps: float) -> list:
+    """Every row within ε of each query (float64 on the card)."""
+    xd = torch.from_numpy(x).cuda().double()
+    sq = (xd * xd).sum(1)
+    eps2 = float(eps) * float(eps)
+    out = []
+    for i0 in range(0, Q.shape[0], 250):
+        q = torch.from_numpy(Q[i0:i0 + 250]).cuda().double()
+        d2 = (q * q).sum(1)[:, None] - 2.0 * (q @ xd.T) + sq[None, :]
+        qi, j = torch.nonzero(d2 <= eps2, as_tuple=True)
+        qi, j = qi.cpu().numpy(), j.cpu().numpy()
+        for k in range(q.shape[0]):
+            out.append(set(j[qi == k].tolist()))
+    return out
+
+
+def phase_serve(main: dict, workdir: str) -> dict:
+    """The serving layer over the 1M index the main path built: the query
+    service (its repeat under live observability), the wave scheduler
+    under fig22's burst, a replicated router with a killed replica and a
+    supervised restart, a 4-shard scatter/gather, and a residency snapshot
+    with a warm reopen. Launch counts are zeroed just before the phase and
+    read just after."""
+    s = main["shapes"]
+    index, x, eps, Q = s["index"], s["x"], s["eps"], s["Q"]
+    out, t = {}, {}
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+
+    # 1. the query service: one request at a time, then the same again
+    # under live observability (a p95 latency objective)
+    index.drop_warm_cache()
+    svc = VectorQueryService(index)
+    t0 = time.perf_counter()
+    first = [svc.query(q) for q in Q]
+    t["service_first"] = time.perf_counter() - t0
+    hits0 = index.pipeline_snapshot()["query_warm_hits"]
+    live = index.attach_live(window_s=0.2, windows=3000, slos=(
+        Slo.latency("query_p95", "query.execute", threshold_s=0.05,
+                    objective=0.9),))
+    t0 = time.perf_counter()
+    again = [svc.query(q) for q in Q]
+    t["service_repeat_live"] = time.perf_counter() - t0
+    warm_hits = index.pipeline_snapshot()["query_warm_hits"] - hits0
+    svc.close()
+    time.sleep(0.25)
+    live.poll()
+    n_exec = index.metrics_snapshot()["live"]["spans"]["query.execute"][
+        "count"]
+    board = dash.render(index)
+    consts = live.live_constants()
+    index.detach_live()
+    check(warm_hits > 0, "the repeated service queries never hit warm")
+    check(n_exec == len(Q), f"live rollup counted {n_exec} query.execute "
+          f"spans for {len(Q)} queries")
+    vs_batch = check_query_agreement(x, Q, main["src"], eps, first,
+                                     main["q_dev"], "service query")
+    vs_again = check_query_agreement(x, Q, None, eps, first, again,
+                                     "service repeat")
+    out["service"] = dict(first_s=t["service_first"],
+                          repeat_s=t["service_repeat_live"],
+                          warm_hits=warm_hits, vs_batch=vs_batch,
+                          repeat_byte_diff=vs_again["byte_diff"])
+    out["live"] = dict(count=n_exec, constants=consts)
+    log(f"[serve] VectorQueryService {len(Q)} queries one at a time: "
+        f"{t['service_first']:.3f} s, repeated under attach_live "
+        f"{t['service_repeat_live']:.3f} s ({warm_hits} warm hits); "
+        f"against query_batch: {vs_batch['members']} members, "
+        f"{vs_batch['boundary']} differences, all on the eps boundary, "
+        f"{vs_batch['byte_diff']} answers differ in their bytes; repeat "
+        f"differs in {vs_again['byte_diff']}; live rollup query.execute "
+        f"count {n_exec}")
+    log("[serve] " + board.replace("\n", "\n[serve] "))
+    log("[serve] live cost constants " + json.dumps(consts, default=str))
+
+    # 2. the wave scheduler under fig22's burst, with and without sharing;
+    # then both policies on the same requests, all answered
+    reqs = fig22_requests(x, N_SERVE_REQUESTS, np.random.default_rng(22))
+    t0 = time.perf_counter()
+    truth = index.query_batch(reqs)
+    t["burst_query_batch"] = time.perf_counter() - t0
+    burst = {}
+    for n_reqs, deadline in ((N_SERVE_REQUESTS, 30.0), (N_SAME_REQUESTS,
+                                                        None)):
+        for share in (True, False):
+            key = ("shared" if share else "naive") + (
+                "" if deadline else "_same")
+            b = serve_burst(index, reqs[:n_reqs], share, deadline)
+            got = b.pop("answers")
+            kept = [i for i, a in enumerate(got) if a is not None]
+            b["vs_batch"] = check_query_agreement(
+                x, reqs[kept], None, eps, [got[i] for i in kept],
+                [truth[i] for i in kept], f"scheduler ({key}) request")
+            burst[key] = b
+            t[f"burst_{key}"] = b["wall_s"]
+            log(f"[serve] scheduler {key} ({n_reqs} requests at t=0 from "
+                f"{SERVE_SUBMITTERS} threads, wave 32, max_wait 5 ms, "
+                f"deadline {deadline} s): wall {b['wall_s']:.3f} s, waves "
+                f"{b['waves']} (serve.wave spans {b['wave_spans']}), p50 "
+                f"{b['p50_ms']:.1f} ms, p95 {b['p95_ms']:.1f} ms, reads "
+                f"{b['reads']} ({b['reads_per_query']:.3f} a request, "
+                f"{b['reads_per_answer']:.3f} an answer), saved by sharing "
+                f"{b['saved']}, deadline drops {b['drops']} (answered "
+                f"{b['answered']}, {b['answered'] / b['wall_s']:.1f} a "
+                f"second); against query_batch: "
+                f"{b['vs_batch']['boundary']} boundary differences, "
+                f"{b['vs_batch']['byte_diff']} answers differ in their "
+                f"bytes")
+    # the 30 s deadline drops most of the burst before any read, and the
+    # two policies answer different requests: their reads a request are
+    # logged, and held against each other on the same requests, all
+    # answered
+    shared, naive = burst["shared"], burst["naive"]
+    log(f"[serve] burst reads a request (deadline 30 s): shared "
+        f"{shared['reads_per_query']:.3f}, naive "
+        f"{naive['reads_per_query']:.3f} (answered {shared['answered']} "
+        f"and {naive['answered']}); the same {N_SAME_REQUESTS} requests, "
+        f"no deadline: shared "
+        f"{burst['shared_same']['reads_per_query']:.3f}, naive "
+        f"{burst['naive_same']['reads_per_query']:.3f}")
+    check(shared["saved"] > 0, "probe sharing saved no read")
+    check(burst["shared_same"]["answered"] == N_SAME_REQUESTS
+          and burst["naive_same"]["answered"] == N_SAME_REQUESTS,
+          "a request without a deadline went unanswered")
+    check(burst["shared_same"]["reads"] < burst["naive_same"]["reads"],
+          "shared waves read no less than the naive policy on the same "
+          "requests")
+    check(shared["wave_spans"] > 0, "no serve.wave span traced")
+    out["burst"] = burst
+
+    # 3. replicas and failover: two sessions of the 1M workdir on the card
+    reps = [DiskJoinIndex.open(index.workdir) for _ in range(2)]
+    for r in reps:      # first-use costs before any deadline applies
+        r.query_batch(Q[:8])
+    router = IndexRouter([reps], epsilon=eps, close_shards=True,
+                         scheduler=dict(max_wait_s=0.001))
+    rset = router.replica_sets[0]
+    qs = Q[:N_REPLICA_ANSWERS]
+    t0 = time.perf_counter()
+    before = [router.query(q, timeout=120) for q in qs]
+    dead = rset.replicas[0]
+    FaultInjector().kill_replica(dead)
+    for r in rset.replicas:     # both in the rotation: the kill is met
+        r.service_ewma = 0.001
+    after = [router.query(q, timeout=120) for q in qs]
+    failovers = rset.snapshot()["counters"]["failovers"]
+    state_dead = dead.health.state
+    sup = ReplicaSupervisor(router)
+    restarted = sup.poll_once()
+    restarted_answers = [dead.scheduler.query(q, timeout=120) for q in qs]
+    t["replicas"] = time.perf_counter() - t0
+    same_after = sum(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                     for a, b in zip(before, after))
+    same_restart = sum(np.array_equal(a[0], b[0])
+                       and np.array_equal(a[1], b[1])
+                       for a, b in zip(before, restarted_answers))
+    pool = dead.index._pool
+    warm_pins = pool.in_use
+    n_warm = len(dead.index.warm_buckets())
+    dead.index.drop_warm_cache()
+    pins_left = pool.in_use
+    device = str(dead.index.device)
+    router.close()
+    check(same_after == len(qs), f"failover answers: {same_after} of "
+          f"{len(qs)} byte-identical")
+    check(failovers > 0 and state_dead == DOWN,
+          f"the kill: failovers {failovers}, state {state_dead}")
+    check(restarted == 1 and dead.health.state == HEALTHY
+          and device == str(index.device),
+          f"restart: {restarted}, {dead.health.state}, {device}")
+    check(same_restart == len(qs), f"restarted answers: {same_restart} of "
+          f"{len(qs)} byte-identical")
+    check(warm_pins == n_warm and pins_left == 0,
+          f"pins after the restart: {warm_pins} for {n_warm} warm, "
+          f"{pins_left} left")
+    out["replicas"] = dict(failovers=failovers, restarted=restarted,
+                           device=device, pins_left=pins_left)
+    log(f"[serve] replicas: 2 sessions of the 1M index on {device}; "
+        f"{len(qs)} answers; replica 0 killed: the same {same_after} "
+        f"answers byte-identical through replica 1, failovers {failovers}, "
+        f"replica 0 {state_dead}; supervisor restart on {device}: "
+        f"{dead.health.state}, the same {same_restart} answers; pool pins "
+        f"{warm_pins} (= {n_warm} warm), 0 after dropping them; "
+        f"{t['replicas']:.3f} s")
+
+    # 4. scatter and gather over 4 spatial shards of 250,000 rows
+    t0 = time.perf_counter()
+    parts = pc1_split(x, N_SHARDS)
+    shards = []
+    for si, rows in enumerate(parts):
+        part = np.ascontiguousarray(x[rows])
+        st = FlatVectorStore.from_array(
+            os.path.join(workdir, f"shard{si}.bin"), part)
+        scfg = dataclasses.replace(main["cfg"],
+                                   num_buckets=len(rows) // 1000,
+                                   memory_budget_bytes=part.nbytes // 10)
+        shards.append(DiskJoinIndex.build(
+            st, scfg, os.path.join(workdir, f"shard{si}"), layout="spatial"))
+    t["shard_builds"] = time.perf_counter() - t0
+    gid = np.concatenate(parts)     # router id -> row of x
+    # the 1,000 queries arrive as one batch, so each shard's waves take
+    # up to 256 of them and share their probe reads
+    router = IndexRouter(shards, epsilon=eps, close_shards=True,
+                         scheduler=dict(wave_size=256, max_wait_s=0.005,
+                                        max_queue=len(Q)))
+    for sh in shards:
+        sh.query_batch(Q[:8])
+    t0 = time.perf_counter()
+    got = router.query_batch(Q, timeout=120)
+    t["router_queries"] = time.perf_counter() - t0
+    fanout = router.snapshot()["fanout_mean"]
+    router.close()
+    truth_sets = brute_force_members(x, Q, eps)
+    eps2 = float(eps) * float(eps)
+    hit = total = outside = 0
+    for qi, (ids, dists) in enumerate(got):
+        rows = gid[ids]
+        d64 = ((x[rows].astype(np.float64) - Q[qi]) ** 2).sum(1)
+        outside += int((d64 > eps2 + 1e-4 * max(1.0, eps2)).sum())
+        check(np.abs(dists - np.sqrt(d64)).max(initial=0.0) <= 1e-3,
+              f"router query {qi} distances vs float64")
+        hit += len(set(rows.tolist()) & truth_sets[qi])
+        total += len(truth_sets[qi])
+    rec = hit / max(total, 1)
+    out["router"] = dict(recall=rec, truth=total, outside=outside,
+                         fanout=fanout, sizes=[len(p) for p in parts])
+    log(f"[serve] router over {N_SHARDS} spatial shards "
+        f"{[len(p) for p in parts]} (built in {t['shard_builds']:.3f} s, "
+        f"spatial layout; waves of up to 256): {len(Q)} queries in "
+        f"{t['router_queries']:.3f} s, "
+        f"fan-out {fanout:.3f}; recall {rec!r} on {total} true members "
+        f"(need >= 0.88), {outside} returned outside eps beyond the "
+        f"boundary band")
+    check(rec >= 0.88, f"router recall {rec} < 0.88")
+    check(outside == 0, f"{outside} router members outside eps")
+
+    # 5. a residency snapshot, then a warm reopen
+    qs = Q[:N_REPLICA_ANSWERS]
+    index.drop_warm_cache()
+    base = index.pipeline_snapshot()
+    cold = index.query_batch(qs)
+    after = index.pipeline_snapshot()
+    cold_reads = sum(after[k] - base[k] for k in ("query_reads",
+                                                  "query_fallback_reads"))
+    saved = index.save_residency_snapshot()
+    with open(os.path.join(index.workdir, RESIDENCY_NAME)) as f:
+        snap_ids = json.load(f)["buckets"]
+    t0 = time.perf_counter()
+    warm = index.reopen()
+    t["reopen"] = time.perf_counter() - t0
+    warm_ids = warm.warm_buckets()
+    base = warm.pipeline_snapshot()
+    warm_answers = warm.query_batch(qs)
+    after = warm.pipeline_snapshot()
+    same_warm = sum(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(cold, warm_answers))
+    warm.close()
+    reads = sum(after[k] - base[k] for k in ("query_reads",
+                                             "query_fallback_reads"))
+    hits = after["query_warm_hits"] - base["query_warm_hits"]
+    check(saved == len(snap_ids) > 0, "empty residency snapshot")
+    check(sorted(warm_ids) == sorted(snap_ids)
+          and base["warm_prefaults"] == len(snap_ids),
+          "the reopened session's warm buckets are not the snapshot's")
+    # the same wave probes the same buckets: every snapshotted one is a
+    # warm hit, and only the rest (past the warm quota) is read
+    check(hits == len(snap_ids) and reads == cold_reads - hits,
+          f"warm reopen: {hits} warm hits and {reads} reads for "
+          f"{len(snap_ids)} snapshotted buckets, {cold_reads} cold reads")
+    check(same_warm == len(qs), f"warm answers: {same_warm} of {len(qs)} "
+          f"byte-identical to the cold session's")
+    out["residency"] = dict(buckets=len(snap_ids), reopen_s=t["reopen"],
+                            warm_hits=hits, reads=reads,
+                            cold_reads=cold_reads)
+    log(f"[serve] residency: {len(snap_ids)} buckets snapshotted (the warm "
+        f"quota's worth of {cold_reads} read cold); reopen "
+        f"{t['reopen']:.3f} s pre-faulted {base['warm_prefaults']}; the "
+        f"first {len(qs)} queries: {hits} warm hits, {reads} reads, "
+        f"answers byte-identical to the cold session's")
+
+    launches = ops.launches_snapshot()
+    verify_launches_all_tc(launches, "[serve]")
+    assign_launches_all_tc(launches, "[serve] shard builds")
+    out["launches"] = launches
+    t["phase"] = time.perf_counter() - t_phase
+    log(f"[serve] launches {launches}")
+    log(f"[serve] phase seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in t.items()})}")
+    return out
+
+
+def simt_difference(index, tc_res, x: np.ndarray, eps: float,
+                    what: str) -> dict:
+    """One more device join with every verify launch forced onto the
+    CUDA-core route (``pairwise_l2.cu``) by patching ``launch_plan`` in
+    this process; the pairs that differ from the tensor-core join's, each
+    of which must have a float64 d² within ``MASK_BAND`` of ε²."""
+    plan = verify.launch_plan
+    verify.launch_plan = lambda m, n, d: verify.LaunchPlan("simt")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        simt = index.self_join(compute_mode="device")
+        torch.cuda.synchronize()
+    finally:
+        verify.launch_plan = plan
+    wall = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    n = launches["verify_pairs_batch"] + launches["pairwise_l2_threshold"]
+    check(n > 0 and launches["verify_simt"] == n
+          and launches["verify_tc"] == 0,
+          f"{what}: the simt join left the CUDA-core route: {launches}")
+    key = x.shape[0]
+    a = tc_res.pairs[:, 0] * key + tc_res.pairs[:, 1]
+    b = simt.pairs[:, 0] * key + simt.pairs[:, 1]
+    only_tc = np.setdiff1d(a, b)
+    only_simt = np.setdiff1d(b, a)
+    diff = np.concatenate([only_tc, only_simt])
+    i, j = diff // key, diff % key
+    d2 = ((x[i].astype(np.float64) - x[j]) ** 2).sum(1)
+    eps2 = float(eps) * float(eps)
+    band = np.abs(d2 - eps2).max(initial=0.0)
+    check(band <= MASK_BAND, f"{what}: a tc/simt difference lies "
+          f"{band} from eps^2 (band {MASK_BAND})")
+    out = dict(tc_pairs=int(a.size), simt_pairs=int(b.size),
+               only_tc=int(only_tc.size), only_simt=int(only_simt.size),
+               max_from_eps2=float(band), simt_s=wall)
+    log(f"[{what}] tc vs simt join: tc {a.size} pairs, simt {b.size}; "
+        f"|tc - simt| {only_tc.size}, |simt - tc| {only_simt.size}; every "
+        f"difference within {band:.3e} of eps^2 (band {MASK_BAND}); simt "
+        f"join {wall:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: byte parity at 100k: host/device x sync/prefetch x striping
+# ---------------------------------------------------------------------------
+def traced_join(index, untraced, workdir: str) -> dict:
+    """The prefetch device join again under ``trace_session``: the
+    untraced one's bytes; its spans exported as a Chrome trace, and
+    ``hidden_fraction(io.read, io.wait)`` logged beside both times."""
+    t0 = time.perf_counter()
+    with trace_session(ring_capacity=1 << 20) as tr:
+        traced = index.self_join(compute_mode="device", io_mode="prefetch")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_identical(untraced, traced, "traced vs untraced prefetch join")
+    path = tr.export(os.path.join(workdir, "prefetch_join.trace.json"))
+    hidden = tr.analysis().hidden_fraction("io.read", "io.wait")
+    ring = tr.ring_stats()
+    check(ring["events"] > 0 and ring["dropped"] == 0,
+          f"the traced join's ring: {ring}")
+    log(f"[parity] prefetch join traced ({wall:.3f} s; execute "
+        f"{traced.timings['execute']:.3f} s against "
+        f"{untraced.timings['execute']:.3f} s untraced): byte-identical; "
+        f"{ring['events']} trace events, Chrome trace "
+        f"{os.path.getsize(path)} bytes, hidden_fraction(io.read, io.wait) "
+        f"{hidden!r}")
+    return dict(events=ring["events"], hidden=hidden, wall_s=wall,
+                execute_s=traced.timings["execute"])
+
+
+def resumed_build(store, cfg, workdir: str, plain_dir: str, plain):
+    """A build killed after its assign scan (the write scan raises, by a
+    patch in this process), then resumed: no sample or assign scan and no
+    assign launch on the resume; its bucket files and device self_join
+    bytes are those of the uninterrupted build at ``plain_dir``."""
+    bz = sys.modules["repro_torch.core.bucketize"]
+    write = bz.write_buckets
+
+    def killed(*a, **k):
+        bz.write_buckets = write
+        raise InjectedKill("kill after the assign scan")
+
+    bz.write_buckets = killed
+    rdir = os.path.join(workdir, "ridx")
+    t0 = time.perf_counter()
+    try:
+        DiskJoinIndex.build(store, cfg, rdir)
+    except InjectedKill:
+        t_killed = time.perf_counter() - t0
+    else:
+        check(False, "the patched write scan did not kill the build")
+    finally:
+        bz.write_buckets = write
+    phases = sorted(os.listdir(os.path.join(rdir, "build_phases")))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with DiskJoinIndex.build(store, cfg, rdir) as resumed:
+        t_resume = time.perf_counter() - t0
+        launches = ops.launches_snapshot()
+        bt = resumed.build_timings
+        check(bt["sample"] == 0.0 and bt["assign"] == 0.0
+              and launches["bucket_assign"] == 0,
+              f"the resumed build rescanned: {bt}, {launches}")
+        files = sorted(f for f in os.listdir(plain_dir)
+                       if f.startswith("buckets")
+                       and os.path.isfile(os.path.join(plain_dir, f)))
+        for f in files:
+            with open(os.path.join(plain_dir, f), "rb") as a, \
+                    open(os.path.join(rdir, f), "rb") as b:
+                check(a.read() == b.read(), f"resumed build: {f} differs")
+        check_identical(plain, resumed.self_join(compute_mode="device"),
+                        "resumed build's join vs the uninterrupted build's")
+    log(f"[parity] resumable build killed after assign "
+        f"({t_killed:.3f} s; committed phases {phases}) and resumed in "
+        f"{t_resume:.3f} s: sample and assign 0 s, 0 assign launches; "
+        f"{len(files)} bucket files and the device self_join "
+        f"byte-identical to the uninterrupted build's")
+
+
+def phase_parity(workdir: str) -> dict:
     n = N_PARITY
     x = clustered_vectors(n, DIM, seed=2)
     eps = epsilon_for_avg_neighbors(x, 20)
@@ -1110,6 +1726,10 @@ def phase_parity(workdir: str) -> None:
         t_dev = time.perf_counter() - t0
         runs[("plain", "prefetch", "device")] = index.self_join(
             compute_mode="device", io_mode="prefetch")
+        trace = traced_join(index, runs[("plain", "prefetch", "device")],
+                            workdir)
+        simt = simt_difference(index, dev, x, eps, "parity")
+        resumed_build(store, cfg, workdir, index.workdir, dev)
     check_join_output(x, eps, host)
     check(np.array_equal(host.pairs, dev.pairs), "host/device pairs differ")
     check(np.array_equal(host.distances, dev.distances),
@@ -1140,10 +1760,11 @@ def phase_parity(workdir: str) -> None:
             "execute", "io_wait", "compute"))
         for k, r in [(("plain", "sync", "host"), host),
                      (("plain", "sync", "device"), dev), *runs.items()]))
+    return dict(simt=simt, trace=trace)
 
 
 # ---------------------------------------------------------------------------
-# phase 5: LM serving at qwen3-0.6b's full width
+# phase 7: LM serving at qwen3-0.6b's full width
 # ---------------------------------------------------------------------------
 def host_ms(fn, reps: int = 3) -> float:
     """Host clock around ``reps`` calls that end in a synchronise (after one
@@ -1413,9 +2034,10 @@ def profile_lm_decode(bundle, params, tok) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one more device-mode self_join and "
-                    "eight LM decode steps with torch.profiler: device busy "
-                    "share and top kernels")
+                    help="also trace one more device-mode self_join, point "
+                    "queries one at a time (host functions, launches a "
+                    "probed bucket) and eight LM decode steps with "
+                    "torch.profiler: device busy share and top kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1436,11 +2058,18 @@ def main() -> int:
         for k in kernels:
             k["io_launches"] = {path: n[wrapper[k["name"]]]
                                 for path, n in io["launches"].items()}
+        t_serve = time.perf_counter()
+        serve = phase_serve(main_path, workdir)
+        log(f"[serve] phase {time.perf_counter() - t_serve:.1f} s")
+        for k in kernels:   # the [serve] phase's own launch counts
+            k["serve_launches"] = serve["launches"][wrapper[k["name"]]]
         t_parity = time.perf_counter()
         phase_parity(workdir)
         log(f"[parity] phase {time.perf_counter() - t_parity:.1f} s")
         if args.profile:
             phase_profile(main_path["shapes"]["index"])
+            profile_queries(main_path["shapes"]["index"],
+                            main_path["shapes"]["Q"])
         main_path["shapes"]["index"].close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

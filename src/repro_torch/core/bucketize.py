@@ -19,7 +19,9 @@ per-bucket write buffers — matches the paper's "minimum ≈2% of dataset".
 Port of the JAX package's ``core/bucketize.py``: scans 1 and 3, the
 oversize split, the radii/compaction, the striped writer
 (``io_devices > 1``) and the planner's sketch hook are the same numpy
-code. The resumable build (``phase_log``) waits for a later slice.
+code, and so is the resumable build's phase log (``phase_log``): the
+same phase names and array names, so a build killed under either package
+leaves markers of the same shape.
 """
 from __future__ import annotations
 
@@ -151,7 +153,7 @@ def write_buckets(store: FlatVectorStore, out_path: str,
 
 def bucketize(store: FlatVectorStore, out_path: str, config: JoinConfig,
               *, device: torch.device, layout_order_fn=None,
-              sketch_sink=None
+              sketch_sink=None, phase_log=None
               ) -> tuple["BucketedVectorStore | StripedBucketedVectorStore",
                          BucketMeta, dict]:
     """Full 3-scan bucketization → (bucketed store, metadata, timings).
@@ -172,19 +174,40 @@ def bucketize(store: FlatVectorStore, out_path: str, config: JoinConfig,
     compaction) so the planner's cardinality sketch can sample the flat
     store directly — at build time the bucketed store doesn't exist yet,
     and resampling it later would pay one read per bucket.
+
+    ``phase_log``: a ``repro_torch.ft.PhaseLog`` making the build
+    resumable — the sample and assign scans commit their outputs when they
+    finish, and a restarted build (same config fingerprint) loads the
+    committed arrays instead of rescanning the flat store (the skipped
+    scans report 0.0 in ``timings``). The assign scan runs on ``device``
+    (the ``bucket_assign`` kernel on the card) only when it is not loaded.
     """
     timings: dict[str, float] = {}
     n_buckets = config.resolve_num_buckets(store.num_vectors)
 
-    t0 = time.perf_counter()
-    centers = sample_centers(store, n_buckets, config.seed,
-                             config.block_rows)
-    timings["sample"] = time.perf_counter() - t0
+    if phase_log is not None and phase_log.has("sample"):
+        centers = phase_log.load_arrays("sample")["centers"]
+        timings["sample"] = 0.0
+    else:
+        t0 = time.perf_counter()
+        centers = sample_centers(store, n_buckets, config.seed,
+                                 config.block_rows)
+        timings["sample"] = time.perf_counter() - t0
+        if phase_log is not None:
+            phase_log.commit_arrays("sample", centers=centers)
 
-    t0 = time.perf_counter()
-    assignment, dist_sq = assign_blocks(store, centers, config.block_rows,
-                                        device)
-    timings["assign"] = time.perf_counter() - t0
+    if phase_log is not None and phase_log.has("assign"):
+        arrs = phase_log.load_arrays("assign")
+        assignment, dist_sq = arrs["assignment"], arrs["dist_sq"]
+        timings["assign"] = 0.0
+    else:
+        t0 = time.perf_counter()
+        assignment, dist_sq = assign_blocks(store, centers,
+                                            config.block_rows, device)
+        timings["assign"] = time.perf_counter() - t0
+        if phase_log is not None:
+            phase_log.commit_arrays("assign", assignment=assignment,
+                                    dist_sq=dist_sq)
 
     max_rows = config.max_bucket_rows
     if max_rows is None:

@@ -19,16 +19,20 @@ buckets warm in pool slabs.
 The online path is split into a plan phase (``plan_probes`` — candidate
 buckets from in-memory metadata, no I/O) and an execute phase
 (``execute_probes`` — one read per distinct bucket, fanned out to every
-member query's verify).
+member query's verify), so a wave scheduler
+(``repro_torch.serve.QueryScheduler``) can union many concurrent
+requests' probe sets and pay each hot bucket's read once.
 
 Port of the JAX package's ``core/index.py``. Every session has a
 ``torch.device``: ``build``/``open`` take ``device=None`` (CUDA) and raise
-without CUDA unless given ``device="cpu"``. Ported: striped stores
-(``io_devices > 1``), ``io_mode="prefetch"`` for joins and query waves,
-the planner (``plan_mode="on"``, ``compute_mode="auto"``) with the
-build-time cardinality sketch, and cross-joins. Not ported yet
-(ROADMAP.md, module queue: serving): resumable builds, live
-observability and residency snapshots.
+without CUDA unless given ``device="cpu"``; ``reopen`` keeps the session's
+device. Everything the JAX package's session does runs here: striped
+stores (``io_devices > 1``), ``io_mode="prefetch"`` for joins and query
+waves, the planner (``plan_mode="on"``, ``compute_mode="auto"``) with the
+build-time cardinality sketch, cross-joins, resumable builds
+(``ft.PhaseLog``), the metrics registry, live observability
+(``attach_live``) and residency snapshots (``open(warm_start=True)``,
+``residency.json`` in the JAX package's format).
 """
 from __future__ import annotations
 
@@ -59,10 +63,11 @@ from repro_torch.core.types import (BUILD_TIME_FIELDS, QUERY_TIME_FIELDS,
                                     resolve_bucket_capacity,
                                     resolve_cache_buckets, split_config)
 from repro_torch.device import resolve_device, to_device
-from repro_torch.ft.atomic import atomic_write_json
+from repro_torch.ft.atomic import AsyncCommitter, atomic_write_json
 from repro_torch.io import BufferPool, PipelineStats, SchedulePrefetcher
 from repro_torch.io.retry import read_with_retry
-from repro_torch.obs import get_tracer
+from repro_torch.obs import MetricsRegistry, enable_tracing, get_tracer
+from repro_torch.obs.live import LiveObserver, default_serving_slos
 from repro_torch.plan import (SKETCH_FILE, CardinalityEstimator, CostModel,
                               Planner)
 from repro_torch.store.striped_store import StripedBucketedVectorStore
@@ -70,14 +75,11 @@ from repro_torch.store.vector_store import BucketedVectorStore, FlatVectorStore
 
 MANIFEST_NAME = "diskjoin_index.json"
 MANIFEST_FORMAT = "diskjoin-index/v1"
+# serving fast-restart snapshot: which buckets were warm at close()
+RESIDENCY_NAME = "residency.json"
 # pool slabs the query warm cache always leaves free (liveness headroom
 # for the queries' own transient reads)
 _WARM_RESERVE = 2
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, "
-                               f"module queue: {item}")
 
 
 class DiskJoinIndex:
@@ -102,6 +104,12 @@ class DiskJoinIndex:
         # at call time, so `with trace_session():` records without
         # re-plumbing; set to a Tracer to pin one
         self.tracer = None
+        self.metrics = MetricsRegistry()
+        self.metrics.register_provider("pipeline", self.stats.snapshot)
+        self.metrics.register_provider("io",
+                                       lambda: self.store.stats.snapshot())
+        # span drops must be visible without holding the tracer object
+        self.metrics.register_provider("tracer", self._tracer_section)
         self.bucket_capacity = resolve_bucket_capacity(build_config,
                                                        meta.sizes)
         self._pool: BufferPool | None = None
@@ -122,6 +130,16 @@ class DiskJoinIndex:
         self._estimator_lock = threading.Lock()
         self._sketch_path = os.path.join(workdir, SKETCH_FILE)
         self._warm_quota: int | None = None
+        # live observability (repro_torch.obs.live): rollups + SLO monitors
+        # + cost recalibration, attached on demand via attach_live()
+        self._live: LiveObserver | None = None
+        self._live_key: str | None = None
+        # periodic residency snapshots: an async writer thread persists
+        # residency.json on an interval so a crash mid-serve still
+        # restarts warm; never blocks the serve path
+        self._residency_committer: AsyncCommitter | None = None
+        self._residency_interval = 0.0
+        self._residency_next = float("inf")
         self._closed = False
 
     # -- construction ---------------------------------------------------------
@@ -129,7 +147,8 @@ class DiskJoinIndex:
     def build(cls, store: FlatVectorStore,
               config: JoinConfig | BuildConfig,
               workdir: str | None = None, *,
-              layout: str = "auto", device=None) -> "DiskJoinIndex":
+              layout: str = "auto", resumable: bool = True,
+              device=None) -> "DiskJoinIndex":
         """Bucketize + lay out ``store`` once under ``workdir`` and return
         the attached session. ``config`` may be a flat ``JoinConfig`` (its
         query-time half becomes the session's per-call defaults) or a bare
@@ -144,8 +163,16 @@ class DiskJoinIndex:
         also samples the planner's cardinality sketch from the flat store
         and persists it next to the manifest.
 
+        ``resumable`` (default on) commits per-phase markers under
+        ``<workdir>/build_phases`` (``repro_torch.ft.PhaseLog``, the JAX
+        package's layout): a build killed mid-way restarts at the last
+        finished phase — sample, assign, sketch and layout outputs are
+        loaded instead of rescanning the flat store (only the final write
+        scan re-runs). A config change invalidates the markers
+        (fingerprinted); the log is removed once the manifest commits.
+
         ``device``: ``None`` (CUDA) or ``"cpu"``; raises without CUDA
-        unless ``"cpu"`` is asked for.
+        unless ``"cpu"`` is asked for. The assign scan runs on it.
         """
         dev = resolve_device(device)
         if isinstance(config, BuildConfig):
@@ -157,6 +184,13 @@ class DiskJoinIndex:
                              f"got {layout!r}")
         workdir = workdir or tempfile.mkdtemp(prefix="diskjoin_index_")
         os.makedirs(workdir, exist_ok=True)
+        flog = None
+        if resumable:
+            from repro_torch.ft.phases import PhaseLog, build_fingerprint
+            flog = PhaseLog(
+                os.path.join(workdir, "build_phases"),
+                build_fingerprint(dataclasses.asdict(build_cfg),
+                                  (store.num_vectors, store.dim), layout))
 
         # disk-layout planning (only when coalescing/striping can use it):
         # the write scan needs the extent order *before* it lays them out
@@ -167,6 +201,12 @@ class DiskJoinIndex:
                 flat = merge_config(build_cfg, query_defaults)
 
                 def layout_fn(meta):
+                    if flog is not None and flog.has("layout"):
+                        order = flog.load_arrays("layout")["order"]
+                        plan_cache.update(
+                            order=order,
+                            kind=flog.load_meta("layout").get("kind"))
+                        return order
                     graph = build_bucket_graph(meta, flat, device=dev)
                     cap = resolve_bucket_capacity(flat, meta.sizes)
                     cache_buckets = resolve_cache_buckets(flat, cap,
@@ -176,11 +216,23 @@ class DiskJoinIndex:
                     plan_cache.update(graph=graph, order=order,
                                       cache_buckets=cache_buckets,
                                       kind="schedule")
+                    if flog is not None:
+                        flog.commit_arrays("layout",
+                                           extra={"kind": "schedule"},
+                                           order=order)
                     return order
             else:
                 def layout_fn(meta):
+                    if flog is not None and flog.has("layout"):
+                        order = flog.load_arrays("layout")["order"]
+                        plan_cache.update(order=order, kind="spatial")
+                        return order
                     order = ordering.spatial_order(meta.centers)
                     plan_cache.update(order=order, kind="spatial")
+                    if flog is not None:
+                        flog.commit_arrays("layout",
+                                           extra={"kind": "spatial"},
+                                           order=order)
                     return order
 
         # planner cardinality sketch: sampled from the FLAT store during
@@ -189,14 +241,23 @@ class DiskJoinIndex:
         sketch_box: dict = {}
 
         def sketch_sink(assignment, num_buckets):
-            sketch_box["est"] = CardinalityEstimator.sample_flat(
+            if flog is not None and flog.has("sketch"):
+                sketch_box["est"] = CardinalityEstimator.load(
+                    os.path.join(flog.path("sketch"), "sketch.npz"))
+                return
+            est = CardinalityEstimator.sample_flat(
                 store, assignment, num_buckets, seed=build_cfg.seed)
+            sketch_box["est"] = est
+            if flog is not None:
+                flog.commit("sketch", lambda tmp: est.save(
+                    os.path.join(tmp, "sketch.npz")))
 
         t0 = time.perf_counter()
         bstore, meta, bt = bucketize(store, os.path.join(workdir, "buckets"),
                                      config, device=dev,
                                      layout_order_fn=layout_fn,
-                                     sketch_sink=sketch_sink)
+                                     sketch_sink=sketch_sink,
+                                     phase_log=flog)
         build_seconds = time.perf_counter() - t0
 
         index = cls(workdir, bstore, meta, build_cfg, query_defaults,
@@ -208,6 +269,8 @@ class DiskJoinIndex:
         if "graph" in plan_cache and query_defaults is not None:
             # the layout pass already planned the default-config join;
             # seed the session caches so the first self_join reuses it
+            # (a resumed layout phase loads only the order — the caches
+            # then repopulate lazily)
             flat = merge_config(build_cfg, query_defaults)
             gkey = index._graph_key(flat)
             index._graph_cache[gkey] = plan_cache["graph"]
@@ -215,6 +278,8 @@ class DiskJoinIndex:
                                 plan_cache["cache_buckets"])] = \
                 plan_cache["order"]
         index._write_manifest(plan_cache.get("order"), plan_cache.get("kind"))
+        if flog is not None:
+            flog.clear()  # manifest committed: the build is done
         return index
 
     @classmethod
@@ -227,11 +292,16 @@ class DiskJoinIndex:
         ``config`` optionally replaces the session's query-time defaults.
         Passing a flat ``JoinConfig`` validates its build-time half against
         the manifest (mismatch raises — the on-disk layout cannot be
-        changed by opening it differently). ``warm_start`` (replaying a
-        residency snapshot) is not ported yet."""
+        changed by opening it differently).
+
+        ``warm_start=True`` replays the residency snapshot the previous
+        session persisted on ``close()`` (by either package: the file is
+        the JAX package's ``diskjoin-residency/v1``): the buckets that were
+        warm then are pre-faulted into pool slabs now (bounded by the warm
+        quota), so the first post-restart query wave hits instead of
+        paying cold reads. A missing or stale snapshot degrades to a cold
+        open."""
         dev = resolve_device(device)
-        if warm_start:
-            raise _not_ported("warm_start (residency snapshots)", "serving")
         path = os.path.join(workdir, MANIFEST_NAME)
         with open(path) as f:
             m = json.load(f)
@@ -278,7 +348,19 @@ class DiskJoinIndex:
             index._order_cache[(gkey, flat.order_strategy, flat.reorder,
                                 cache_buckets)] = \
                 np.asarray(m["layout_order"], dtype=np.int64)
+        if warm_start:
+            index._warm_start()
         return index
+
+    def reopen(self, *, warm_start: bool = True) -> "DiskJoinIndex":
+        """A fresh session over the same on-disk index — the supervised
+        restart path (``serve.replica.ReplicaSupervisor``): re-``open``
+        this session's ``workdir`` with its query-time defaults on its
+        ``device``, pre-faulting the residency snapshot by default. The
+        dead session is untouched (close it separately; it may be
+        wedged)."""
+        return DiskJoinIndex.open(self.workdir, self.query_defaults,
+                                  warm_start=warm_start, device=self.device)
 
     def _write_manifest(self, layout_order, layout_kind) -> None:
         manifest = {
@@ -338,6 +420,73 @@ class DiskJoinIndex:
     def _tracer(self):
         return self.tracer if self.tracer is not None else get_tracer()
 
+    def _tracer_section(self) -> dict:
+        """``metrics_snapshot()["tracer"]``: whether tracing is on, how
+        many events each thread's ring holds, and — crucially — how many
+        were silently dropped to ring wrap-around."""
+        tr = self._tracer()
+        if not tr.enabled:
+            return {"enabled": False}
+        out = {"enabled": True}
+        out.update(tr.ring_stats())
+        return out
+
+    # -- live observability (repro_torch.obs.live) ---------------------------
+    @property
+    def live(self) -> "LiveObserver | None":
+        """The attached live observer, or None (``repro_torch.obs.dash``
+        reads this)."""
+        return self._live
+
+    def attach_live(self, *, window_s: float = 1.0, windows: int = 60,
+                    slos=None, calibrate: bool = True, on_alert=None,
+                    tracer=None, residency_interval_s: float | None = None,
+                    **observer_kw) -> "LiveObserver":
+        """Attach continuous observability to this session: streaming
+        rollups of every span/instant/counter the session records, SLO
+        burn-rate monitors over them, and live cost-model recalibration
+        feeding ``_planner_for``.
+
+        Uses the session tracer; when no tracer is recording, the
+        module-level tracer is enabled (and disabled again on
+        ``detach_live``/``close`` if still ours). ``slos=None`` watches
+        ``default_serving_slos()``; pass ``slos=()`` for rollups only.
+        ``residency_interval_s`` additionally turns on periodic in-run
+        residency snapshots (``enable_residency_snapshots``)."""
+        if self._live is not None:
+            raise RuntimeError("live observability is already attached; "
+                               "detach_live() first")
+        tr = tracer if tracer is not None else self._tracer()
+        owns = False
+        if not tr.enabled:
+            tr = enable_tracing()
+            owns = True
+        self.tracer = tr  # pin: session spans keep landing in this tracer
+        obs = LiveObserver(
+            tr, window_s=window_s, windows=windows,
+            slos=default_serving_slos() if slos is None else slos,
+            pipeline_source=self.stats.snapshot, metrics=self.metrics,
+            on_alert=on_alert, calibrate=calibrate, owns_tracing=owns,
+            **observer_kw)
+        self._live = obs
+        self._live_key = self.metrics.register_provider("live",
+                                                        obs.section)
+        if residency_interval_s is not None:
+            self.enable_residency_snapshots(residency_interval_s)
+        return obs
+
+    def detach_live(self) -> None:
+        """Remove the live observer (sink, provider, owned tracing)."""
+        obs, self._live = self._live, None
+        if obs is None:
+            return
+        if self._live_key is not None:
+            self.metrics.unregister_provider(self._live_key)
+            self._live_key = None
+        if self.tracer is obs.tracer and obs.owns_tracing:
+            self.tracer = None
+        obs.close()
+
     # -- cost-based planning ---------------------------------------------------
     @property
     def estimator(self) -> CardinalityEstimator:
@@ -373,12 +522,20 @@ class DiskJoinIndex:
         calibrated from the session's telemetry, this call's emulation
         knobs and the session device's static constants. Cheap to build
         per call — the emulated link/latency may differ between calls.
-        The port has no metrics registry yet: counters go to the
-        session's ``PipelineStats`` only."""
+
+        With ``attach_live()`` active, the observer's rolling
+        span-derived constants join the calibration as the ``live``
+        provenance tier (measured > live > config > static, the static
+        tier being the session device's: the card's ``_CUDA_STATIC`` on
+        CUDA): long runs' wave plans re-price from what the hardware is
+        doing *now* — the link especially, which no cumulative counter
+        measures."""
+        live = self._live.live_constants() if self._live is not None \
+            else None
         cost = CostModel.from_telemetry(cfg, self.stats.snapshot(),
-                                        device=self.device)
+                                        live=live, device=self.device)
         return Planner(self.estimator, cost, tracer=self._tracer(),
-                       metrics=None, pstats=self.stats)
+                       metrics=self.metrics, pstats=self.stats)
 
     # -- config resolution ---------------------------------------------------
     def _resolve(self, overrides: dict) -> JoinConfig:
@@ -548,12 +705,6 @@ class DiskJoinIndex:
         with self._warm_lock:
             self._joins_active -= 1
 
-    def attach_live(self, **kw):
-        raise _not_ported("attach_live (live observability)", "serving")
-
-    def enable_residency_snapshots(self, interval_s: float = 30.0) -> None:
-        raise _not_ported("residency snapshots", "serving")
-
     # -- online point queries -------------------------------------------------
     def _validate_queries(self, Q: np.ndarray) -> np.ndarray:
         """Contiguous (Q, dim) float32, rejecting wrong widths and
@@ -712,6 +863,7 @@ class DiskJoinIndex:
         self._read_and_verify(self._sorted_by_layout(list(probe)), cfg,
                               verify, skip=skip)
         self.stats.add("queries", Q.shape[0])
+        self._maybe_snapshot_residency()
 
         out = []
         for qi in range(Q.shape[0]):
@@ -890,12 +1042,19 @@ class DiskJoinIndex:
                 verify(b, vecs, ids, n)
                 continue
             t0 = time.perf_counter()
-            n = read_with_retry(
-                lambda: self.store.read_bucket_into(
-                    b, pool.vecs(slot), pool.ids(slot),
-                    pad_value=PAD_COORD),
-                retries=cfg.io_retries,
-                backoff_s=cfg.io_retry_backoff_s, stats=self.stats)
+            try:
+                n = read_with_retry(
+                    lambda: self.store.read_bucket_into(
+                        b, pool.vecs(slot), pool.ids(slot),
+                        pad_value=PAD_COORD),
+                    retries=cfg.io_retries,
+                    backoff_s=cfg.io_retry_backoff_s, stats=self.stats)
+            except BaseException:
+                # a read that fails for good (a killed replica's store)
+                # gives its slab back: the JAX package's copy keeps it
+                # pinned for the session's life
+                pool.unpin(slot)
+                raise
             if tr.enabled:
                 tr.complete("io.read", t0, time.perf_counter() - t0,
                             buckets=1, src="query")
@@ -968,6 +1127,125 @@ class DiskJoinIndex:
         with self._warm_lock:
             return list(self._warm)
 
+    # -- serving fast restart (repro_torch.ft) -------------------------------
+    def _residency_ids(self) -> list[int]:
+        """Warm bucket ids eligible for the residency snapshot (LRU
+        order, oldest first). Slabs a concurrent query still has pinned
+        are excluded — their residency is transient, not cache state."""
+        with self._warm_lock:
+            pool = self._pool
+            if pool is None:
+                return []
+            # warm entries hold exactly one pool reference; a higher
+            # refcount means some in-flight verify has it pinned
+            return [int(b) for b, (slot, _) in self._warm.items()
+                    if pool.refcount(slot) == 1]
+
+    def save_residency_snapshot(self) -> int:
+        """Persist the warm cache's bucket ids to ``residency.json`` so
+        the next ``open(warm_start=True)`` can pre-fault them. Returns
+        the number of bucket ids written (0 on a read-only workdir)."""
+        ids = self._residency_ids()
+        try:
+            atomic_write_json(os.path.join(self.workdir, RESIDENCY_NAME),
+                              {"format": "diskjoin-residency/v1",
+                               "buckets": ids})
+        except OSError:
+            return 0  # read-only workdir: restart just comes up cold
+        return len(ids)
+
+    def enable_residency_snapshots(self, interval_s: float = 30.0) -> None:
+        """Persist ``residency.json`` periodically *during* serving, not
+        only at ``close()`` — a crash mid-serve then still restarts warm.
+        The snapshot is captured at query-execution boundaries (a cheap
+        id-list copy under the warm lock) and written by an
+        ``AsyncCommitter`` daemon via ``try_submit``: the serve path
+        never blocks on the disk, and a slow write simply defers the
+        snapshot to the next boundary."""
+        self._residency_interval = float(interval_s)
+        if self._residency_committer is None:
+            self._residency_committer = AsyncCommitter(
+                name="residency-snapshot")
+        self._residency_next = time.perf_counter() + \
+            self._residency_interval
+
+    def disable_residency_snapshots(self) -> None:
+        committer, self._residency_committer = \
+            self._residency_committer, None
+        self._residency_next = float("inf")
+        if committer is not None:
+            committer.close()
+
+    def _maybe_snapshot_residency(self) -> bool:
+        """Called at query-execution boundaries: submit an async
+        residency write when the interval elapsed and the writer is
+        idle. Returns whether a snapshot was submitted."""
+        if self._residency_committer is None:
+            return False
+        now = time.perf_counter()
+        if now < self._residency_next:
+            return False
+        self._residency_next = now + self._residency_interval
+        ids = self._residency_ids()
+        path = os.path.join(self.workdir, RESIDENCY_NAME)
+
+        def write():
+            try:
+                atomic_write_json(path,
+                                  {"format": "diskjoin-residency/v1",
+                                   "buckets": ids})
+            except OSError:
+                pass  # read-only workdir: keep serving
+
+        if not self._residency_committer.try_submit(write):
+            return False  # previous write still in flight
+        self.stats.add("residency_snapshots", 1)
+        return True
+
+    def _warm_start(self) -> None:
+        """Replay a persisted residency snapshot: pre-fault its buckets
+        into pool slabs (newest-first priority, bounded by the warm
+        quota and pool headroom). Counted as ``warm_prefaults``."""
+        path = os.path.join(self.workdir, RESIDENCY_NAME)
+        if self.query_defaults is None or not os.path.exists(path):
+            return
+        try:
+            with open(path) as f:
+                snap = json.load(f)
+            buckets = snap["buckets"]
+        except (OSError, ValueError, KeyError):
+            return  # torn/stale snapshot: cold start, not an error
+        cfg = merge_config(self.build_config, self.query_defaults)
+        pool = self._ensure_pool(cfg)
+        with self._warm_lock:
+            cap = (self._warm_quota if self._warm_quota is not None
+                   else pool.num_slabs - _WARM_RESERVE)
+            # snapshot is LRU order (oldest first): fault the most
+            # recently used end first so it survives any truncation
+            faulted = 0
+            for b in reversed(buckets):
+                b = int(b)
+                if faulted >= cap:
+                    break
+                if not (0 <= b < self.meta.num_buckets):
+                    continue  # snapshot predates a rebuild
+                if b in self._warm:
+                    continue
+                slot = pool.try_acquire()
+                if slot is None:
+                    break
+                n = read_with_retry(
+                    lambda: self.store.read_bucket_into(
+                        b, pool.vecs(slot), pool.ids(slot),
+                        pad_value=PAD_COORD),
+                    retries=cfg.io_retries,
+                    backoff_s=cfg.io_retry_backoff_s, stats=self.stats)
+                self._warm[b] = (slot, n)
+                self._warm.move_to_end(b, last=False)
+                faulted += 1
+            if faulted:
+                self.stats.add("warm_prefaults", faulted)
+
     # -- telemetry / lifecycle ------------------------------------------------
     def pipeline_snapshot(self) -> dict:
         """The session's single PipelineStats snapshot: batch-join loads
@@ -976,6 +1254,12 @@ class DiskJoinIndex:
 
     def io_snapshot(self) -> dict:
         return self.store.stats.snapshot()
+
+    def metrics_snapshot(self) -> dict:
+        """The session's full metrics surface (``repro_torch.obs``): registered
+        instruments plus the pipeline/io provider sections — and whatever
+        services (scheduler, query service) registered on top."""
+        return self.metrics.snapshot()
 
     def merge_build_timings(self, timings: dict) -> dict:
         """Fold this index's build cost into a result's timings (the
@@ -1000,8 +1284,22 @@ class DiskJoinIndex:
         if self._closed:
             return
         self._closed = True
+        if self._live is not None:
+            try:
+                self.detach_live()
+            except Exception:
+                pass  # observability teardown must not block release
+        if self._residency_committer is not None:
+            try:
+                self.disable_residency_snapshots()
+            except Exception:
+                pass  # a failed last snapshot is re-raised there; the
+                #       close() below still writes a fresh one inline
         with self._warm_lock:
             if self._pool is not None:
+                # snapshot BEFORE dropping: the warm set is the restart's
+                # pre-fault list
+                self.save_residency_snapshot()
                 self._drop_warm_locked()
         if self._pool is not None:
             self._pool.close()

@@ -18,6 +18,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        # pinned to a card index here, so threads that serve the session
+        # later (a scheduler's drain thread) launch on this card, not on
+        # whichever device is current in that thread
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

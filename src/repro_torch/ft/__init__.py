@@ -1,4 +1,16 @@
-"""Durability primitives the port needs (a subset of the JAX package's)."""
-from repro_torch.ft.atomic import atomic_write_json
+"""Fault tolerance: resumable builds, warm restarts, fault injection.
 
-__all__ = ["atomic_write_json"]
+Copied from the JAX package's ``repro.ft`` (plain Python). The join
+checkpointer (``join_ckpt``) waits for the distributed-join slice.
+"""
+from repro_torch.ft.atomic import (AsyncCommitter, atomic_commit_dir,
+                                   atomic_write_json, fingerprint, reap_tmp)
+from repro_torch.ft.fault import FaultInjector, FlakyStore, InjectedKill
+from repro_torch.ft.phases import PhaseLog
+
+__all__ = [
+    "AsyncCommitter", "atomic_commit_dir", "atomic_write_json",
+    "fingerprint", "reap_tmp",
+    "FaultInjector", "FlakyStore", "InjectedKill",
+    "PhaseLog",
+]

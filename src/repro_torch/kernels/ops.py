@@ -12,11 +12,16 @@ tensors to the kernel as they are, strides and all. By device:
 
 ``JoinConfig.use_pallas`` plays no part here. ``LAUNCHES`` counts kernel
 launches per wrapper (CPU calls never count), so a run can show that its
-path went through the kernels. The kernels mask ragged edges themselves,
-so no wrapper pads. The DiskJoin engines and the build call only this
-layer; the LM's attention calls ``gqa_attention``.
+path went through the kernels. Every increment goes through
+``count_launch``, under one lock: the drain threads of several replicas
+launch at once, and a bare ``+=`` on a shared dict can lose counts. The
+kernels mask ragged edges themselves, so no wrapper pads. The DiskJoin
+engines and the build call only this layer; the LM's attention calls
+``gqa_attention``.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -36,11 +41,27 @@ LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             **{c: 0 for c in _assign_kernel.ROUTE_COUNTERS.values()},
             "flash_attention": 0,
             **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()}}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(*names: str) -> None:
+    """Add one to each named counter, all under one lock (called only
+    where a CUDA launch happened)."""
+    with _LAUNCHES_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def launches_snapshot() -> dict:
+    """A consistent copy of every counter."""
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
 
 
 def eps2_f32(eps: float) -> float:
@@ -89,7 +110,7 @@ def pairwise_l2_threshold(a, b, eps: float):
                 torch.empty((a.shape[0], b.shape[0]), dtype=torch.bool,
                             device=dev))
     d2, mask = _launch_verify(a[None], b[None], eps2)
-    LAUNCHES["pairwise_l2_threshold"] += 1
+    count_launch("pairwise_l2_threshold")
     return d2[0], mask[0].view(torch.bool)
 
 
@@ -113,7 +134,7 @@ def verify_pairs_batch(u, v, eps: float):
         return (torch.empty(shape, device=dev),
                 torch.empty(shape, dtype=torch.bool, device=dev))
     d2, mask = _launch_verify(u, v, eps2)
-    LAUNCHES["verify_pairs_batch"] += 1
+    count_launch("verify_pairs_batch")
     return d2, mask.view(torch.bool)
 
 
@@ -122,7 +143,7 @@ def _launch_verify(a: torch.Tensor, b: torch.Tensor, eps2: float):
     operands and count it under its route."""
     plan = _pairwise_kernel.launch_plan(a.shape[1], b.shape[1], a.shape[2])
     out = _pairwise_kernel.pairwise_l2_threshold_batched(a, b, eps2, plan)
-    LAUNCHES[_pairwise_kernel.ROUTE_COUNTERS[plan.route]] += 1
+    count_launch(_pairwise_kernel.ROUTE_COUNTERS[plan.route])
     return out
 
 
@@ -154,8 +175,7 @@ def _launch_assign(x: torch.Tensor, centers: torch.Tensor):
     plan = _assign_kernel.launch_plan(x.shape[0], centers.shape[0],
                                       x.shape[1])
     out = _assign_kernel.bucket_assign(x, centers, plan)
-    LAUNCHES["bucket_assign"] += 1
-    LAUNCHES[_assign_kernel.ROUTE_COUNTERS[plan.route]] += 1
+    count_launch("bucket_assign", _assign_kernel.ROUTE_COUNTERS[plan.route])
     return out
 
 
@@ -231,8 +251,7 @@ def _launch_flash(q, k, v, **kw) -> torch.Tensor:
     plan = _flash_kernel.launch_plan(b, sq, k.shape[1], h, k.shape[2], d,
                                      q.dtype)
     out = _flash_kernel.flash_attention(q, k, v, plan=plan, **kw)
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES[_flash_kernel.ROUTE_COUNTERS[plan.route]] += 1
+    count_launch("flash_attention", _flash_kernel.ROUTE_COUNTERS[plan.route])
     return out
 
 

@@ -19,9 +19,11 @@ Design constraints, in order:
    stores a ring append performs. Rings are fixed-capacity and overwrite
    oldest-first, so a forgotten enabled tracer degrades to bounded
    memory, never unbounded growth.
-3. **Events stay in memory.** ``events()`` returns the recorded spans;
-   the JAX package's Chrome-trace export and ``TraceAnalysis`` are not
-   part of this port yet (ROADMAP, module queue).
+3. **One export surface.** ``export(path)`` writes Chrome-trace /
+   Perfetto JSON (open at https://ui.perfetto.dev); ``analysis()``
+   returns a programmatic ``TraceAnalysis`` over the same events, so
+   overlap fractions and stage breakdowns are *derived from spans*
+   rather than hand-maintained counters.
 
 Event kinds (Chrome trace phases):
   span      'X'  complete event with duration (``span``/``complete``)
@@ -274,6 +276,15 @@ class Tracer:
             for _, _, r in self._rings:
                 r.buf = [None] * r.cap
                 r.i = r.n = 0
+
+    # -- export / analysis (repro_torch.obs.export) ---------------------------
+    def export(self, path: str) -> str:
+        from repro_torch.obs.export import export_chrome_trace
+        return export_chrome_trace(self, path)
+
+    def analysis(self) -> "TraceAnalysis":
+        from repro_torch.obs.export import TraceAnalysis
+        return TraceAnalysis(self.events())
 
 
 # -- module-level current tracer ----------------------------------------------

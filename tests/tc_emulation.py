@@ -1,9 +1,18 @@
 """The tensor-core kernels' arithmetic, emulated in torch on the CPU:
 3×TF32 products of float32 operands with per-chunk partial sums that the
 tensor cores round toward zero (``csrc/l2_sm90.cuh``), and float32 FMA
-chains in k order. Shared by ``test_torch_verify_tc.py`` and
-``test_torch_assign_tc.py``."""
+chains in k order, and data that puts the assign kernel's re-check to
+the test. Shared by ``test_torch_verify_tc.py``,
+``test_torch_assign_tc.py`` and ``test_torch_cuda.py`` (so it imports
+nothing of the JAX package)."""
+import numpy as np
 import torch
+
+# two float32 evaluations of |x|² + |c|² − 2 x·c in different orders may
+# rank two centers differently only where their exact d² lie closer than
+# this share of |x|²: the largest such gap seen in the near-tie data was
+# 6.9e-7 (emulated tensor cores) and 5.8e-7 (the JAX package's order)
+F32_ORDER_GAP = 2.0 ** -20
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -62,3 +71,19 @@ def fma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for k in range(a.shape[-1]):
         acc = (acc.double() + a[..., k].double() * b[..., k].double()).float()
     return acc
+
+
+def three_way_ties(m: int, d: int, seed: int):
+    """Rows each with three centers of their own at distance 0.3 along
+    orthonormal directions, the three radii apart by a relative 1e-9 ..
+    1e-5 (log-uniform): the three nearest d² lie within the tensor cores'
+    error of each other (7e-7 |x|² in this data)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d))
+    c = []
+    for row in x:
+        q, _ = np.linalg.qr(rng.normal(size=(d, 3)))
+        tau = (np.exp(rng.uniform(np.log(1e-9), np.log(1e-5), size=3))
+               * rng.choice([-1.0, 1.0], size=3))
+        c.append(row[None] + (0.3 * (1 + tau))[:, None] * q.T)
+    return x.astype(np.float32), np.concatenate(c).astype(np.float32)

@@ -414,6 +414,132 @@ def test_striped_build_and_join_on_card(cuda, tmp_path):
         _identical(r, plain.cross_join(striped))
 
 
+def test_two_replica_schedulers_count_every_verify_launch(cuda, tmp_path,
+                                                         monkeypatch):
+    """Two replicas of one small index, each with its own scheduler and
+    drain thread, serve at once from four submitters on one card: the E = 1
+    verify tile's launch count equals the verify calls made (the locked
+    counters lose nothing), every launch takes the tensor-core route, both
+    replicas give the same answers, and each pool ends with only its warm
+    pins."""
+    import threading
+
+    from repro_torch.serve import QueryScheduler
+    x, eps, built = _small_index(tmp_path, "i")
+    built.close()
+    calls = {"n": 0}
+    lock = threading.Lock()
+    inner = ops.pairwise_l2_threshold
+
+    def counted(a, b, e):
+        with lock:
+            calls["n"] += 1
+        return inner(a, b, e)
+
+    monkeypatch.setattr(ops, "pairwise_l2_threshold", counted)
+    replicas = [DiskJoinIndex.open(str(tmp_path / "i")) for _ in range(2)]
+    rng = np.random.default_rng(3)
+    Q = (x[rng.choice(x.shape[0], 256)]
+         + rng.normal(scale=1e-3, size=(256, x.shape[1]))).astype(np.float32)
+    scheds = [QueryScheduler(r, wave_size=16, max_wait_s=0.002,
+                             compute_mode="device", max_queue=4096)
+              for r in replicas]
+    out = [[None] * len(Q) for _ in scheds]
+    ops.reset_launches()
+
+    def submit(k):
+        for si, sched in enumerate(scheds):
+            futs = [(i, sched.submit(Q[i])) for i in range(k, len(Q), 4)]
+            for i, f in futs:
+                out[si][i] = f.result(timeout=120)
+
+    threads = [threading.Thread(target=submit, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for sched in scheds:
+        sched.close()
+    assert not any(t.is_alive() for t in threads)
+    launches = ops.launches_snapshot()
+    assert calls["n"] > 0
+    assert launches["pairwise_l2_threshold"] == calls["n"]
+    _assert_tc_verify_only()
+    for a, b in zip(*out):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    for r in replicas:
+        assert r.device.type == "cuda" and r.device.index is not None
+        assert r._pool.in_use == len(r.warm_buckets())
+        r.close()
+
+
+def test_three_way_assign_ties_differ_only_in_float32_band(cuda):
+    """ROADMAP §3 fault 2 on the card: rows whose three nearest centers lie
+    within the tensor cores' error (``test_torch_assign_tc.py``'s data).
+    The ``tc`` route's argmin may differ from ``simt``'s, but only on rows
+    whose three nearest exact d² lie within float32 rounding of each other
+    (2^-20 |x|²), and d² stays within tolerance. The count that differs
+    is printed for the record."""
+    from tc_emulation import F32_ORDER_GAP, three_way_ties
+    x, c = three_way_ties(64, 128, 1)
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
+    plan = assign.launch_plan(xt.shape[0], ct.shape[0], ct.shape[1])
+    assert plan.route == "tc"
+    d2t, it = assign.bucket_assign(xt, ct, plan)
+    d2s, is_ = assign.bucket_assign(xt, ct, assign.LaunchPlan("simt"))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(d2t.cpu().numpy(), d2s.cpu().numpy(),
+                               **D2_TOL)
+    lost = (it != is_).cpu().numpy()
+    x64 = x.astype(np.float64)
+    exact = np.sort(((x64[:, None] - c[None]) ** 2).sum(-1), axis=1)
+    spread3 = exact[:, 2] - exact[:, 0]
+    assert (spread3[lost] <= F32_ORDER_GAP * (x64[lost] ** 2).sum(1)).all()
+    print(f"three-way ties: tc and simt argmin differ on {lost.sum()} of "
+          f"{len(lost)} rows")
+
+
+def test_resumed_build_on_card_is_byte_identical(cuda, tmp_path,
+                                                 monkeypatch):
+    """A build killed after its assign scan (the write scan raises)
+    resumes on the card without rescanning and leaves an uninterrupted
+    build's bucket files, byte for byte; the assign scan launched the
+    kernel only in the first attempt."""
+    import os
+    import sys
+
+    from repro_torch.ft import InjectedKill
+    bz = sys.modules["repro_torch.core.bucketize"]
+    x = clustered_vectors(4000, 32, seed=5)
+    eps = epsilon_for_avg_neighbors(x, 10)
+    cfg = JoinConfig(epsilon=eps, pad_align=64, num_buckets=24,
+                     memory_budget_bytes=1 << 20)
+    store = FlatVectorStore.from_array(str(tmp_path / "x.bin"), x)
+    orig = bz.write_buckets
+
+    def killed(*a, **k):
+        monkeypatch.setattr(bz, "write_buckets", orig)
+        raise InjectedKill("kill during write scan")
+
+    monkeypatch.setattr(bz, "write_buckets", killed)
+    with pytest.raises(InjectedKill):
+        DiskJoinIndex.build(store, cfg, str(tmp_path / "r"))
+    ops.reset_launches()
+    resumed = DiskJoinIndex.build(store, cfg, str(tmp_path / "r"))
+    assert ops.LAUNCHES["bucket_assign"] == 0
+    assert resumed.build_timings["assign"] == 0.0
+    fresh = DiskJoinIndex.build(store, cfg, str(tmp_path / "f"))
+    assert ops.LAUNCHES["assign_tc"] == ops.LAUNCHES["bucket_assign"] > 0
+    with resumed, fresh:
+        for name in sorted(os.listdir(tmp_path / "f")):
+            path = tmp_path / "f" / name
+            if name.startswith("buckets") and path.is_file():
+                assert path.read_bytes() == \
+                    (tmp_path / "r" / name).read_bytes(), name
+        _identical(resumed.self_join(compute_mode="device"),
+                   fresh.self_join(compute_mode="device"))
+
+
 def test_center_index_above_crossover_matches_cpu(cuda):
     """Scan 2 above the reference's crossover goes through the IVF index:
     its assign on the card equals the CPU's at 8,192 rows × 65,537

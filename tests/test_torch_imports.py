@@ -36,7 +36,14 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.plan.planner",
                 "repro_torch.kernels._build", "repro_torch.device",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.models.convert", "repro_torch.serve.engine"]
+                "repro_torch.models.convert", "repro_torch.serve.engine",
+                "repro_torch.serve.scheduler",
+                "repro_torch.serve.query_service",
+                "repro_torch.serve.replica", "repro_torch.serve.router",
+                "repro_torch.ft.atomic", "repro_torch.ft.phases",
+                "repro_torch.ft.fault", "repro_torch.obs.metrics",
+                "repro_torch.obs.export", "repro_torch.obs.live",
+                "repro_torch.obs.dash", "repro_torch.obs.webhook"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -47,3 +47,34 @@ def assert_same_file(port_path, ref_path):
         return
     with open(port_path, "rb") as f, open(ref_path, "rb") as g:
         assert f.read() == g.read(), port_path
+
+
+def assert_same_answers(x, Q, port, ref, eps, tol=1e-4):
+    """Point-query answers, one (ids, distances) pair per query: the same
+    members except ε-boundary rows (float64 d² within ``tol`` of ε²), and
+    the distances of common members allclose. Returns the members held in
+    common."""
+    assert len(port) == len(ref) == len(Q)
+    total = 0
+    for q, (pi, pd), (ri, rd) in zip(Q, port, ref):
+        a = dict(zip(np.asarray(pi).tolist(), np.asarray(pd).tolist()))
+        b = dict(zip(np.asarray(ri).tolist(), np.asarray(rd).tolist()))
+        q64 = np.asarray(q, np.float64)
+        for v in set(a) ^ set(b):
+            d2 = ((x[v].astype(np.float64) - q64) ** 2).sum()
+            assert abs(d2 - eps * eps) <= tol, (v, d2)
+        common = sorted(set(a) & set(b))
+        total += len(common)
+        np.testing.assert_allclose([a[k] for k in common],
+                                   [b[k] for k in common],
+                                   rtol=1e-4, atol=1e-3)
+    return total
+
+
+def assert_identical_answers(a, b):
+    """Port against port: the same ids and distances, byte for byte, in
+    the same order."""
+    assert len(a) == len(b)
+    for (ai, ad), (bi, bd) in zip(a, b):
+        assert np.array_equal(ai, bi)
+        assert np.array_equal(ad, bd)
