@@ -54,10 +54,11 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    index's assign above the crossover (8,192 rows × 65,537 centers) on the
    card against the CPU.
 5. ``[serve]``, on the same 1M index (launch counts zeroed just before):
-   the 1,000 queries through ``VectorQueryService`` one at a time, then
-   again under ``attach_live`` with a p95 latency objective (warm hits;
-   the rollup must count each query; ``query_batch``'s memberships but
-   for ε-boundary rows; the dashboard logged); fig22's burst (4,096
+   the first 500 of the 1,000 queries through ``VectorQueryService`` one
+   at a time, then the first 250 again under ``attach_live`` with a p95
+   latency objective (warm hits; the rollup must count each query;
+   ``query_batch``'s memberships but for ε-boundary rows; the dashboard
+   logged); fig22's burst (4,096
    requests at t = 0 from 8 threads, 70% near 16 hot anchors, N(0, 0.01)
    noise, a 30 s deadline) through ``QueryScheduler`` with and without
    probe sharing (sharing must save reads; reads a request logged), then
@@ -72,7 +73,21 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    snapshot and a warm ``reopen`` (the snapshot's buckets warm, each a
    hit for the first 64 queries, the cold session's bytes). Every verify
    launch of the phase takes the tensor-core route.
-6. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
+6. ``[dist]`` (launch counts zeroed just before): the superstep join
+   (``core.distributed.DistributedJoin``) on the 1M index in device mode,
+   its pairs and distances byte-identical to the main path's
+   ``self_join``; at 100,000 × 128 (``[parity]``'s data and config) in
+   host and device mode, with a ``JoinCheckpointer`` (every supersteps /
+   16, fig25's interval), and killed by a ``FaultInjector`` at 60% of its
+   supersteps and resumed from the checkpoints: every run the 100k
+   single-box join's bytes, the resumed one's raw-row watermark the
+   uninterrupted run's; checkpoint overhead and goodput logged beside
+   fig25's gates. Then ``semantic_dedup`` on 50,000 rows and 50,000
+   planted near-duplicates (rows + N(0, 1e-3)), ε = 0.05: recall of the
+   planted pairs against float64 ≥ 0.88 and at least 0.88 × 50,000
+   rows dropped. Every verify and assign launch takes the tensor-core
+   route.
+7. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
    sync and prefetch I/O, and a second build striped over 4 devices with
    coalescing; every join (device mode in each I/O × striping corner)
    gives the plain sync host join's bytes. The prefetch join again under
@@ -83,7 +98,7 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    from the tensor-core join lies within 1e-2 of ε² in float64. A resumable build killed after its assign
    scan, then resumed: no rescan, and the uninterrupted build's bucket
    files and join bytes.
-7. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
+8. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
    max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
    32 new tokens each, no EOS: two waves), then ``prefill`` runs on
@@ -116,6 +131,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -128,11 +144,14 @@ from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core import center_index  # noqa: E402
+from repro_torch.core import distributed as dist_mod  # noqa: E402
 from repro_torch.core.index import RESIDENCY_NAME  # noqa: E402
 from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
-from repro_torch.ft import FaultInjector, InjectedKill  # noqa: E402
+from repro_torch.data import dedup as dedup_mod  # noqa: E402
+from repro_torch.ft import (FaultInjector, InjectedKill,  # noqa: E402
+                            JoinCheckpointer)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -160,6 +179,8 @@ N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
 N_CROSS = 100_000       # the cross-join's second side: near-duplicates
+N_SERVICE_QUERIES = 500  # [serve]: queries to the service, one at a time
+N_LIVE_QUERIES = 250    # [serve]: the service's repeat under attach_live
 N_SERVE_REQUESTS = 4096  # fig22's burst: every request at t = 0
 N_SAME_REQUESTS = 256   # its head, served by both policies, none dropped
 SERVE_SUBMITTERS = 8
@@ -167,6 +188,8 @@ N_HOT_ANCHORS = 16
 N_REPLICA_ANSWERS = 64
 N_SHARDS = 4            # 250,000 rows each
 N_PROFILE_QUERIES = 50  # --profile: point queries per profiled pass
+N_DEDUP = 50_000        # [dist]: dedup rows, each with a planted duplicate
+DEDUP_EPS = 0.05        # tests/test_system.py's dedup threshold
 JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
                 "bucket_assign")
 LM_ARCH = "qwen3-0.6b"
@@ -1330,14 +1353,14 @@ def phase_serve(main: dict, workdir: str) -> dict:
     index.drop_warm_cache()
     svc = VectorQueryService(index)
     t0 = time.perf_counter()
-    first = [svc.query(q) for q in Q]
+    first = [svc.query(q) for q in Q[:N_SERVICE_QUERIES]]
     t["service_first"] = time.perf_counter() - t0
     hits0 = index.pipeline_snapshot()["query_warm_hits"]
     live = index.attach_live(window_s=0.2, windows=3000, slos=(
         Slo.latency("query_p95", "query.execute", threshold_s=0.05,
                     objective=0.9),))
     t0 = time.perf_counter()
-    again = [svc.query(q) for q in Q]
+    again = [svc.query(q) for q in Q[:N_LIVE_QUERIES]]
     t["service_repeat_live"] = time.perf_counter() - t0
     warm_hits = index.pipeline_snapshot()["query_warm_hits"] - hits0
     svc.close()
@@ -1349,20 +1372,24 @@ def phase_serve(main: dict, workdir: str) -> dict:
     consts = live.live_constants()
     index.detach_live()
     check(warm_hits > 0, "the repeated service queries never hit warm")
-    check(n_exec == len(Q), f"live rollup counted {n_exec} query.execute "
-          f"spans for {len(Q)} queries")
-    vs_batch = check_query_agreement(x, Q, main["src"], eps, first,
-                                     main["q_dev"], "service query")
-    vs_again = check_query_agreement(x, Q, None, eps, first, again,
+    check(n_exec == N_LIVE_QUERIES, f"live rollup counted {n_exec} "
+          f"query.execute spans for {N_LIVE_QUERIES} queries")
+    vs_batch = check_query_agreement(
+        x, Q[:N_SERVICE_QUERIES], main["src"][:N_SERVICE_QUERIES], eps,
+        first, main["q_dev"][:N_SERVICE_QUERIES], "service query")
+    vs_again = check_query_agreement(x, Q[:N_LIVE_QUERIES], None, eps,
+                                     first[:N_LIVE_QUERIES], again,
                                      "service repeat")
     out["service"] = dict(first_s=t["service_first"],
                           repeat_s=t["service_repeat_live"],
                           warm_hits=warm_hits, vs_batch=vs_batch,
                           repeat_byte_diff=vs_again["byte_diff"])
     out["live"] = dict(count=n_exec, constants=consts)
-    log(f"[serve] VectorQueryService {len(Q)} queries one at a time: "
-        f"{t['service_first']:.3f} s, repeated under attach_live "
-        f"{t['service_repeat_live']:.3f} s ({warm_hits} warm hits); "
+    log(f"[serve] VectorQueryService {N_SERVICE_QUERIES} queries one at a "
+        f"time: "
+        f"{t['service_first']:.3f} s, the first {N_LIVE_QUERIES} repeated "
+        f"under attach_live {t['service_repeat_live']:.3f} s ({warm_hits} "
+        f"warm hits); "
         f"against query_batch: {vs_batch['members']} members, "
         f"{vs_batch['boundary']} differences, all on the eps boundary, "
         f"{vs_batch['byte_diff']} answers differ in their bytes; repeat "
@@ -1587,6 +1614,238 @@ def phase_serve(main: dict, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the superstep join, join checkpoints, semantic dedup
+# ---------------------------------------------------------------------------
+def timed_plan(t: dict):
+    """Patch ``plan_supersteps`` in this process so each call adds its
+    seconds (the node ordering and the window cut) to ``t["plan"]``;
+    returns the function that restores it."""
+    plan = dist_mod.plan_supersteps
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return plan(*a, **k)
+        finally:
+            t["plan"] = t.get("plan", 0.0) + time.perf_counter() - t0
+
+    dist_mod.plan_supersteps = timed
+    return lambda: setattr(dist_mod, "plan_supersteps", plan)
+
+
+def superstep_run(index, cfg, graph, **kw) -> tuple:
+    """A fresh ``DistributedJoin`` (cold caches, as after a restart) over
+    the index's bucket store → (result with ``pairs`` and ``distances``,
+    info, wall seconds)."""
+    t0 = time.perf_counter()
+    join = dist_mod.DistributedJoin(index.store, index.meta, cfg)
+    pairs, info = join.run(graph, **kw)
+    torch.cuda.synchronize()
+    res = types.SimpleNamespace(pairs=pairs, distances=info["dists"])
+    return res, info, time.perf_counter() - t0
+
+
+def dist_line(info: dict) -> dict:
+    return {k: info[k] for k in (
+        "supersteps", "host_loads", "host_hits", "prefetched_buckets",
+        "h2d_transfers", "device_slab_hits", "distance_computations")
+        if k in info}
+
+
+def dist_1m(main: dict, out: dict, t: dict) -> None:
+    """The superstep join on the 1M index in device mode against the main
+    path's ``self_join``: the same pairs, and distances byte for byte."""
+    s = main["shapes"]
+    index, ref = s["index"], main["res"]
+    cfg = index._resolve({})
+    check(cfg.compute_mode == "device", "[main]'s join is not device mode")
+    graph, _, _ = index._graph_for(cfg)
+    before = ops.launches_snapshot()
+    tp = {}
+    restore = timed_plan(tp)
+    try:
+        res, info, wall = superstep_run(index, cfg, graph)
+    finally:
+        restore()
+    launches = {k: v - before[k] for k, v in ops.launches_snapshot().items()}
+    n = verify_launches_all_tc(launches, "1M superstep join")
+    check(launches["pairwise_l2_threshold"] == 0,
+          "the 1M superstep join launched the E = 1 tile")
+    check(np.array_equal(res.pairs, ref.pairs),
+          "1M superstep join: pairs differ from [main]'s self_join")
+    differ = int((res.distances != ref.distances).sum())
+    if differ:
+        # a difference is a fault to find: its count is logged, and the
+        # distances are held to the d² tolerance meanwhile
+        check(np.allclose(res.distances, ref.distances, rtol=D2_RTOL,
+                          atol=D2_ATOL),
+              f"1M superstep join: {differ} distances not even allclose")
+    check(info["distance_computations"] == ref.num_distance_computations,
+          "1M superstep join: distance computations differ")
+    t["superstep_1m"] = wall
+    out["superstep_1m"] = dict(dist_line(info), wall_s=wall,
+                               plan_s=tp["plan"], launches=n,
+                               dists_differ=differ,
+                               h2d_bytes=info["h2d_bytes"])
+    log(f"[dist] 1M superstep join (device mode) {wall:.3f} s (plan "
+        f"{tp['plan']:.3f} s: node order + windows; walk and verify "
+        f"{wall - tp['plan']:.3f} s): {res.pairs.shape[0]} pairs "
+        f"byte-identical "
+        f"to [main]'s self_join, distances "
+        + ("byte-identical" if not differ else
+           f"{differ} differ (allclose)")
+        + f"; {n} verify launches, all tc; " + json.dumps(dist_line(info))
+        + f"; single-box join: bucket loads {ref.bucket_loads}, execute "
+        f"{ref.timings['execute']:.3f} s")
+
+
+def dist_100k(workdir: str, out: dict, t: dict) -> None:
+    """At [parity]'s 100k data and config: the superstep join in host and
+    device mode, checkpointed, and killed and resumed, each the single-box
+    join's bytes."""
+    n = N_PARITY
+    x = clustered_vectors(n, DIM, seed=2)
+    eps = epsilon_for_avg_neighbors(x, 20)
+    store = FlatVectorStore.from_array(os.path.join(workdir, "d.bin"), x)
+    cfg = JoinConfig(epsilon=eps, num_buckets=n // 1000,
+                     memory_budget_bytes=x.nbytes // 10, pad_align=128)
+    with DiskJoinIndex.build(store, cfg,
+                             os.path.join(workdir, "didx")) as index:
+        single = index.self_join(compute_mode="device")
+        dcfg = index._resolve(dict(compute_mode="device"))
+        hcfg = index._resolve(dict(compute_mode="host"))
+        graph, _, _ = index._graph_for(dcfg)
+        runs = {}
+        for name, c in (("host", hcfg), ("device", dcfg)):
+            res, info, wall = superstep_run(index, c, graph)
+            check_identical(res, single, f"100k superstep join ({name})")
+            runs[name] = dict(dist_line(info), wall_s=wall)
+            t[f"superstep_100k_{name}"] = wall
+        steps = runs["device"]["supersteps"]
+        every = max(1, steps // 16)
+        ck = JoinCheckpointer(os.path.join(workdir, "ck_full"), every=every)
+        res, base, t_ckpt = superstep_run(index, dcfg, graph,
+                                          checkpointer=ck)
+        ck.close()
+        check_identical(res, single, "100k checkpointed superstep join")
+        kill_at = int(0.6 * steps)
+        ckdir = os.path.join(workdir, "ck_kill")
+        ck = JoinCheckpointer(ckdir, every=every)
+        t0 = time.perf_counter()
+        try:
+            dist_mod.DistributedJoin(index.store, index.meta, dcfg).run(
+                graph, checkpointer=ck,
+                fault=FaultInjector(kill_at_superstep=kill_at))
+        except InjectedKill:
+            t_a1 = time.perf_counter() - t0
+        else:
+            check(False, "the fault injector did not kill the join")
+        ck.finish()   # a real crash skips this; restore reaps torn writes
+        ck.close()
+        ck = JoinCheckpointer(ckdir, every=every)
+        res, info, t_a2 = superstep_run(index, dcfg, graph,
+                                        checkpointer=ck, resume_from=ckdir)
+        ck.close()
+        check_identical(res, single, "100k resumed superstep join")
+        check(info["watermark_rows"] == base["watermark_rows"],
+              "resumed join: raw-row watermark differs")
+        check(0 < info["resumed_at"] <= kill_at,
+              f"resumed at {info['resumed_at']}, killed at {kill_at}")
+    t_dev = runs["device"]["wall_s"]
+    overhead = t_ckpt / t_dev - 1.0
+    goodput = t_ckpt / (t_a1 + t_a2)
+    out["superstep_100k"] = dict(
+        runs=runs, every=every, ckpt=base["ckpt"], ckpt_s=t_ckpt,
+        overhead=overhead, kill_at=kill_at, resumed_at=info["resumed_at"],
+        attempt1_s=t_a1, attempt2_s=t_a2, restore_s=info["restore_s"],
+        goodput=goodput, watermark=info["watermark_rows"])
+    t["superstep_100k_ckpt"] = t_ckpt
+    t["superstep_100k_kill_resume"] = t_a1 + t_a2
+    log(f"[dist] 100k superstep joins: host and device mode "
+        f"byte-identical to the single-box join ({single.pairs.shape[0]} "
+        f"pairs); host " + json.dumps(runs["host"]) + "; device "
+        + json.dumps(runs["device"]))
+    log(f"[dist] 100k checkpointed (every {every} of {steps} supersteps): "
+        f"byte-identical, {t_ckpt:.3f} s against {t_dev:.3f} s, overhead "
+        f"{overhead:.4f} (fig25's gate < 0.05); " + json.dumps(base["ckpt"]))
+    log(f"[dist] 100k killed at superstep {kill_at} after {t_a1:.3f} s, "
+        f"resumed at {info['resumed_at']} in {t_a2:.3f} s (restore "
+        f"{info['restore_s']:.4f} s): byte-identical, watermark "
+        f"{info['watermark_rows']} rows as uninterrupted; goodput "
+        f"{goodput:.4f} (fig25's gate >= 0.8)")
+
+
+def dist_dedup(workdir: str, out: dict, t: dict) -> None:
+    """``semantic_dedup`` at 100k × 128: half the rows are planted near
+    duplicates of the other half; the join's pairs (recorded through a
+    patch of the module's join in this process) must find ≥ 0.88 of the
+    planted pairs that lie within ε in float64."""
+    base = clustered_vectors(N_DEDUP, DIM, seed=11)
+    rng = np.random.default_rng(0)
+    emb = np.concatenate([base, base + rng.normal(
+        scale=1e-3, size=base.shape).astype(np.float32)])
+    join = dedup_mod.similarity_self_join
+    joined = {}
+
+    def recording(*a, **k):
+        joined["res"] = join(*a, **k)
+        return joined["res"]
+
+    dedup_mod.similarity_self_join = recording
+    t0 = time.perf_counter()
+    try:
+        rep = dedup_mod.semantic_dedup(
+            emb, epsilon=DEDUP_EPS, recall_target=0.9,
+            workdir=os.path.join(workdir, "dedup"), device=None)
+    finally:
+        dedup_mod.similarity_self_join = join
+    t["dedup"] = time.perf_counter() - t0
+    res = joined["res"]
+    n = 2 * N_DEDUP
+    xd = torch.from_numpy(emb).cuda().double()
+    near = ((xd[:N_DEDUP] - xd[N_DEDUP:]) ** 2).sum(1) \
+        <= DEDUP_EPS * DEDUP_EPS
+    i = torch.arange(N_DEDUP, device=xd.device)[near]
+    truth = i * n + (i + N_DEDUP)
+    got = torch.from_numpy(res.pairs[:, 0] * n + res.pairs[:, 1]).cuda()
+    rec = torch.isin(truth, got).double().mean().item()
+    out["dedup"] = dict(num_pairs=rep.num_pairs, num_dropped=rep.num_dropped,
+                        dedup_rate=rep.dedup_rate, recall=rec,
+                        planted_within_eps=int(truth.numel()),
+                        wall_s=t["dedup"])
+    log(f"[dist] semantic_dedup {n} x {DIM} ({N_DEDUP} planted near "
+        f"duplicates, eps {DEDUP_EPS}): {rep.num_pairs} pairs, "
+        f"{rep.num_dropped} dropped, dedup_rate {rep.dedup_rate!r}; "
+        f"planted-pair recall {rec!r} on {truth.numel()} within eps in "
+        f"float64 (need >= 0.88); {t['dedup']:.3f} s, join timings "
+        + json.dumps({k: round(v, 4) for k, v in res.timings.items()}))
+    check(rec >= 0.88, f"dedup planted-pair recall {rec} < 0.88")
+    check(rep.num_dropped >= 0.88 * N_DEDUP,
+          f"dedup dropped {rep.num_dropped} < 0.88 x {N_DEDUP}")
+
+
+def phase_dist(main: dict, workdir: str) -> dict:
+    """The superstep join on the 1M index and at 100k (checkpoints,
+    kill/resume), then semantic dedup. Launch counts are zeroed just
+    before the phase and read just after."""
+    out, t = {}, {}
+    ops.reset_launches()
+    t_phase = time.perf_counter()
+    dist_1m(main, out, t)
+    dist_100k(workdir, out, t)
+    dist_dedup(workdir, out, t)
+    launches = ops.launches_snapshot()
+    verify_launches_all_tc(launches, "[dist]")
+    assign_launches_all_tc(launches, "[dist] builds")
+    out["launches"] = launches
+    t["phase"] = time.perf_counter() - t_phase
+    log(f"[dist] launches {launches}")
+    log(f"[dist] phase seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in t.items()})}")
+    return out
+
+
 def simt_difference(index, tc_res, x: np.ndarray, eps: float,
                     what: str) -> dict:
     """One more device join with every verify launch forced onto the
@@ -1631,7 +1890,7 @@ def simt_difference(index, tc_res, x: np.ndarray, eps: float,
 
 
 # ---------------------------------------------------------------------------
-# phase 6: byte parity at 100k: host/device x sync/prefetch x striping
+# phase 7: byte parity at 100k: host/device x sync/prefetch x striping
 # ---------------------------------------------------------------------------
 def traced_join(index, untraced, workdir: str) -> dict:
     """The prefetch device join again under ``trace_session``: the
@@ -1764,7 +2023,7 @@ def phase_parity(workdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: LM serving at qwen3-0.6b's full width
+# phase 8: LM serving at qwen3-0.6b's full width
 # ---------------------------------------------------------------------------
 def host_ms(fn, reps: int = 3) -> float:
     """Host clock around ``reps`` calls that end in a synchronise (after one
@@ -2063,6 +2322,11 @@ def main() -> int:
         log(f"[serve] phase {time.perf_counter() - t_serve:.1f} s")
         for k in kernels:   # the [serve] phase's own launch counts
             k["serve_launches"] = serve["launches"][wrapper[k["name"]]]
+        t_dist = time.perf_counter()
+        dist = phase_dist(main_path, workdir)
+        log(f"[dist] phase {time.perf_counter() - t_dist:.1f} s")
+        for k in kernels:   # the [dist] phase's own launch counts
+            k["dist_launches"] = dist["launches"][wrapper[k["name"]]]
         t_parity = time.perf_counter()
         phase_parity(workdir)
         log(f"[parity] phase {time.perf_counter() - t_parity:.1f} s")

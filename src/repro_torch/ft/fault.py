@@ -55,9 +55,9 @@ class FaultInjector:
         self.kills = 0
 
     def superstep(self, si: int) -> None:
-        """Hook for the top of each superstep of a distributed join (the
-        JAX package's ``DistributedJoin.run``; not ported yet). Fires at
-        most once, then disarms."""
+        """Hook for the top of each superstep of a superstep join
+        (``core.distributed.DistributedJoin.run``). Fires at most once,
+        then disarms."""
         if (self.kill_at_superstep is not None and not self._fired
                 and si >= self.kill_at_superstep):
             self._fired = True

@@ -540,6 +540,65 @@ def test_resumed_build_on_card_is_byte_identical(cuda, tmp_path,
                    fresh.self_join(compute_mode="device"))
 
 
+SUPERSTEP_BUDGET = dict(memory_budget_bytes=1 << 17)  # a few buckets a window
+
+
+def _superstep_join(index, **kw):
+    from repro_torch.core.distributed import DistributedJoin
+    cfg = index._resolve(dict(SUPERSTEP_BUDGET, **kw))
+    graph, _, _ = index._graph_for(cfg)
+    return DistributedJoin(index.store, index.meta, cfg), graph
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+def test_superstep_join_is_the_single_box_join_on_card(cuda, tmp_path,
+                                                       mode):
+    """The superstep join on the card gives the single-box join's bytes
+    (pairs and distances) over many windows, and every verify launch takes
+    the tensor-core route."""
+    _, _, index = _small_index(tmp_path, "i")
+    with index:
+        single = index.self_join(compute_mode=mode, **SUPERSTEP_BUDGET)
+        dj, graph = _superstep_join(index, compute_mode=mode)
+        ops.reset_launches()
+        pairs, info = dj.run(graph)
+        _assert_tc_verify_only()
+        assert ops.LAUNCHES["pairwise_l2_threshold"] == 0
+        assert info["supersteps"] > 3
+        assert np.array_equal(pairs, single.pairs)
+        assert np.array_equal(info["dists"], single.distances)
+        if mode == "device":
+            assert 0 < info["h2d_transfers"] <= info["host_loads"]
+            assert info["device_slab_hits"] > 0
+
+
+def test_superstep_kill_and_resume_on_card(cuda, tmp_path):
+    """A device-mode superstep join killed at 60% of its supersteps and
+    resumed from its checkpoints gives the uninterrupted run's bytes and
+    raw-row watermark."""
+    from repro_torch.ft import (FaultInjector, InjectedKill,
+                                JoinCheckpointer)
+    _, _, index = _small_index(tmp_path, "i")
+    with index:
+        dj, graph = _superstep_join(index, compute_mode="device")
+        base_pairs, base = dj.run(graph)
+        kill_at = max(1, int(base["supersteps"] * 0.6))
+        ckdir = str(tmp_path / "ck")
+        ck = JoinCheckpointer(ckdir)
+        with pytest.raises(InjectedKill):
+            dj.run(graph, checkpointer=ck,
+                   fault=FaultInjector(kill_at_superstep=kill_at))
+        ck.finish()
+        ops.reset_launches()
+        pairs, info = dj.run(graph, checkpointer=JoinCheckpointer(ckdir),
+                             resume_from=ckdir)
+        _assert_tc_verify_only()
+        assert 0 < info["resumed_at"] <= kill_at
+        assert np.array_equal(pairs, base_pairs)
+        assert np.array_equal(info["dists"], base["dists"])
+        assert info["watermark_rows"] == base["watermark_rows"]
+
+
 def test_center_index_above_crossover_matches_cpu(cuda):
     """Scan 2 above the reference's crossover goes through the IVF index:
     its assign on the card equals the CPU's at 8,192 rows × 65,537

@@ -11,8 +11,9 @@ pytest.importorskip("torch")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
-SUBPACKAGES = ["compute", "configs", "core", "data", "ft", "io", "kernels",
-               "models", "obs", "plan", "serve", "store"]
+SUBPACKAGES = ["baselines", "compute", "configs", "core", "data", "ft", "io",
+               "kernels", "models", "obs", "plan", "runtime", "serve",
+               "store"]
 # `import jax…`, `from jax…`, `import repro`/`repro.x`, `from repro.x` — but
 # never `repro_torch`
 FORBIDDEN = re.compile(
@@ -43,7 +44,9 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.ft.atomic", "repro_torch.ft.phases",
                 "repro_torch.ft.fault", "repro_torch.obs.metrics",
                 "repro_torch.obs.export", "repro_torch.obs.live",
-                "repro_torch.obs.dash", "repro_torch.obs.webhook"]
+                "repro_torch.obs.dash", "repro_torch.obs.webhook",
+                "repro_torch.core.distributed", "repro_torch.ft.join_ckpt",
+                "repro_torch.data.dedup"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -51,11 +51,10 @@ def built(tmp_path_factory):
 
 @pytest.mark.parametrize("port,ref,left_out", [
     (tobs, jobs, set()), (tserve, jserve, set()),
-    (tft, jft, {"JoinCheckpointer", "ResumeState"}),
+    (tft, jft, set()),
 ])
 def test_packages_export_the_reference_names(port, ref, left_out):
-    """``obs`` and ``serve`` export the JAX package's names; ``ft`` all
-    but the join checkpointer, which waits for the distributed join."""
+    """``obs``, ``serve`` and ``ft`` export the JAX package's names."""
     assert set(port.__all__) == set(ref.__all__) - left_out
     for name in port.__all__:
         assert getattr(port, name) is not None
