@@ -54,21 +54,22 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    index's assign above the crossover (8,192 rows × 65,537 centers) on the
    card against the CPU.
 5. ``[serve]``, on the same 1M index (launch counts zeroed just before):
-   the first 500 of the 1,000 queries through ``VectorQueryService`` one
-   at a time, then the first 250 again under ``attach_live`` with a p95
+   the first 250 of the 1,000 queries through ``VectorQueryService`` one
+   at a time, then the first 125 again under ``attach_live`` with a p95
    latency objective (warm hits; the rollup must count each query;
    ``query_batch``'s memberships but for ε-boundary rows; the dashboard
    logged); fig22's burst (4,096
    requests at t = 0 from 8 threads, 70% near 16 hot anchors, N(0, 0.01)
    noise, a 30 s deadline) through ``QueryScheduler`` with and without
    probe sharing (sharing must save reads; reads a request logged), then
-   its first 256 requests through both policies without a deadline
+   its first 128 requests through both policies without a deadline
    (sharing must read less on the same requests, all answered); every
    answer holds the query contract against ``query_batch``; an
    ``IndexRouter`` over two replica sessions of the 1M workdir, one
    killed (the same answers, byte for byte, through the other) and
    restarted by ``ReplicaSupervisor`` on the card; 4 spatial
-   shards of 250,000 rows behind one router (recall against float64
+   shards of 250,000 rows behind one router (the first 500 queries;
+   recall against float64
    ≥ 0.88, no member outside ε beyond the boundary band); a residency
    snapshot and a warm ``reopen`` (the snapshot's buckets warm, each a
    hit for the first 64 queries, the cold session's bytes). Every verify
@@ -82,9 +83,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    supersteps and resumed from the checkpoints: every run the 100k
    single-box join's bytes, the resumed one's raw-row watermark the
    uninterrupted run's; checkpoint overhead and goodput logged beside
-   fig25's gates. Then ``semantic_dedup`` on 50,000 rows and 50,000
+   fig25's gates. Then ``semantic_dedup`` on 25,000 rows and 25,000
    planted near-duplicates (rows + N(0, 1e-3)), ε = 0.05: recall of the
-   planted pairs against float64 ≥ 0.88 and at least 0.88 × 50,000
+   planted pairs against float64 ≥ 0.88 and at least 0.88 × 25,000
    rows dropped. Every verify and assign launch takes the tensor-core
    route.
 7. Byte parity of ``self_join`` at 100,000 × 128: host and device mode,
@@ -112,6 +113,25 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    beside their bound and ``scaled_dot_product_attention``. In float32,
    decode must reproduce the teacher-forced forward over a 64-token
    prompt, B = 4 (tests/test_models.py's tolerance).
+   Then every other family at its published widths (``FAMILIES``):
+   olmoe-1b-7b (6.92 B parameters), mamba2-1.3b, recurrentgemma-2b and
+   whisper-small at full depth, deepseek-moe-16b cut to 4 layers and
+   internvl2-26b to 2. Each (counts zeroed just before, read just after)
+   serves one wave of 4 prompts of 32 tokens, 8 new tokens each,
+   through ``ServeEngine`` (whisper: 1,500 stub frames encoded at batch
+   4, then 8 greedy decode steps), then one (1, 2048) prefill (internvl2:
+   1,024 patches, then tokens; whisper: the frames and 64 tokens). Every
+   decode-step flash call must take the split-KV route and every prefill
+   call the tensor-core route, attention layers x calls in all; logits
+   finite; MoE prefill drops per layer logged. In float32 at full width,
+   mamba2 (2 layers) and recurrentgemma (3) hold decode against the
+   teacher-forced forward (rtol 2e-2, atol 2e-3); olmoe, deepseek,
+   internvl2 and whisper (2 layers) hold the card's logits against the
+   port's CPU path on the same weights (``CARD_CPU_TOL``), with the same
+   top-k experts wherever the router's k-th and (k+1)-th probabilities
+   differ by more than ``ROUTER_TOL``. The families' new attention shapes
+   are held against the plain version and timed beside it, SDPA and the
+   bound.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
@@ -122,6 +142,8 @@ profiled point queries one at a time and traced LM decode steps.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -156,7 +178,9 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
-from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.models import build_model, encdec  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.obs import Slo, dash, trace_session  # noqa: E402
 from repro_torch.plan import cost_model  # noqa: E402
 from repro_torch.serve import (DOWN, HEALTHY,  # noqa: E402
@@ -179,16 +203,17 @@ N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
 N_CROSS = 100_000       # the cross-join's second side: near-duplicates
-N_SERVICE_QUERIES = 500  # [serve]: queries to the service, one at a time
-N_LIVE_QUERIES = 250    # [serve]: the service's repeat under attach_live
+N_SERVICE_QUERIES = 250  # [serve]: queries to the service, one at a time
+N_LIVE_QUERIES = 125    # [serve]: the service's repeat under attach_live
 N_SERVE_REQUESTS = 4096  # fig22's burst: every request at t = 0
-N_SAME_REQUESTS = 256   # its head, served by both policies, none dropped
+N_SAME_REQUESTS = 128   # its head, served by both policies, none dropped
 SERVE_SUBMITTERS = 8
 N_HOT_ANCHORS = 16
 N_REPLICA_ANSWERS = 64
 N_SHARDS = 4            # 250,000 rows each
+N_ROUTER_QUERIES = 500  # [serve]: queries through the sharded router
 N_PROFILE_QUERIES = 50  # --profile: point queries per profiled pass
-N_DEDUP = 50_000        # [dist]: dedup rows, each with a planted duplicate
+N_DEDUP = 25_000        # [dist]: dedup rows, each with a planted duplicate
 DEDUP_EPS = 0.05        # tests/test_system.py's dedup threshold
 JOIN_KERNELS = ("pairwise_l2_threshold", "verify_pairs_batch",
                 "bucket_assign")
@@ -199,6 +224,24 @@ LM_NEW_TOKENS = 32
 LM_PREFILL_SHAPE = (4, 2048)
 LM_TF_SHAPE = (4, 64)              # decode vs teacher forcing, float32
 LM_DECODE_POS = 300                # decode check: cache slots >= 301 empty
+# the other families: arch → layers served (0: its published depth; the
+# cuts are PERF.md §4's), each at its published widths
+FAMILIES = {"olmoe-1b-7b": 0, "deepseek-moe-16b": 4, "mamba2-1.3b": 0,
+            "recurrentgemma-2b": 0, "internvl2-26b": 2, "whisper-small": 0}
+# one wave; 8 new tokens (16 until a run went over budget: PERF.md §4)
+FAM_PROMPTS, FAM_PROMPT_LEN, FAM_NEW_TOKENS = 4, 32, 8
+FAM_MAX_SEQ = 2048      # recurrentgemma's local caches hold its whole window
+FAM_PREFILL = 2048      # (1, 2048): a VLM's 1,024 patches, then tokens
+WHISPER_PREFILL_TOKENS = 64
+# float32 decode vs teacher-forced forward at full width: (layers, (B, S));
+# mamba2's S spans two SSD chunks of 256 with a ragged tail
+TF_CHECKS = {"mamba2-1.3b": (2, (2, 320)), "recurrentgemma-2b": (3, (2, 64))}
+# the rest: float32 card vs the port's CPU plain path at full width
+CPU_CHECK_LAYERS, CPU_CHECK_TOKENS, CPU_CHECK_DECODE = 2, (2, 16), 4
+CPU_CHECK_PATCHES = 32
+CARD_CPU_TOL = 1e-3     # as ATTN_TOL: |card - cpu| <= tol * (1 + |cpu|)
+ROUTER_TOL = 1e-6       # top-k ids agree where the k-th and (k+1)-th router
+                        # probabilities differ by more (float32 probs ~1/64)
 # rtol = atol, as |got - want| <= tol * (1 + |want|). bf16: one bf16 ulp
 # (2^-8 relative) of the output, since a kernel whose float32 result
 # differs from the plain version's in the last bits may round to the
@@ -1523,8 +1566,9 @@ def phase_serve(main: dict, workdir: str) -> dict:
             st, scfg, os.path.join(workdir, f"shard{si}"), layout="spatial"))
     t["shard_builds"] = time.perf_counter() - t0
     gid = np.concatenate(parts)     # router id -> row of x
-    # the 1,000 queries arrive as one batch, so each shard's waves take
-    # up to 256 of them and share their probe reads
+    # the queries arrive as one batch, so each shard's waves take up to
+    # 256 of them and share their probe reads
+    Q = Q[:N_ROUTER_QUERIES]
     router = IndexRouter(shards, epsilon=eps, close_shards=True,
                          scheduler=dict(wave_size=256, max_wait_s=0.005,
                                         max_queue=len(Q)))
@@ -1777,9 +1821,9 @@ def dist_100k(workdir: str, out: dict, t: dict) -> None:
 
 
 def dist_dedup(workdir: str, out: dict, t: dict) -> None:
-    """``semantic_dedup`` at 100k × 128: half the rows are planted near
-    duplicates of the other half; the join's pairs (recorded through a
-    patch of the module's join in this process) must find ≥ 0.88 of the
+    """``semantic_dedup`` at 2 · N_DEDUP × 128: half the rows are planted
+    near duplicates of the other half; the join's pairs (recorded through
+    a patch of the module's join in this process) must find ≥ 0.88 of the
     planted pairs that lie within ε in float64."""
     base = clustered_vectors(N_DEDUP, DIM, seed=11)
     rng = np.random.default_rng(0)
@@ -2038,9 +2082,13 @@ def host_ms(fn, reps: int = 3) -> float:
 
 
 def rolling_positions(steps: int, written: int) -> torch.Tensor:
-    """kpos of a decode cache after positions 0..written-1 (−1: empty)."""
-    pos = torch.arange(steps, dtype=torch.int32)
-    return torch.where(pos < written, pos, -1).cuda()
+    """kpos of a rolling decode cache of ``steps`` slots after positions
+    0..written-1: slot i holds the latest position ≡ i (mod steps), −1 if
+    none."""
+    slot = torch.arange(steps, dtype=torch.int32)
+    last = slot + steps * torch.div(written - 1 - slot, steps,
+                                    rounding_mode="floor")
+    return torch.where(slot < written, last, -1).to(torch.int32).cuda()
 
 
 def attn_inputs(cfg, b, sq, t, dtype, seed):
@@ -2065,29 +2113,38 @@ def check_attention(q, k, v, kw) -> float:
     return (got - want).abs().max().item()
 
 
-def attention_row(name, cfg, sq, t, kw, launches) -> dict:
-    """One shape of the path: checked in bf16 (the path's dtype) and
-    float32, each through the route ``launch_plan`` gives it; timed in both
-    beside the plain version, SDPA and the bound. ``launches``: the main
-    path's count of the bf16 route."""
+def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
+                  dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """One shape of the path (batch ``b``): checked in each of ``dtypes``
+    (bf16 is the path's; float32 adds the float32 routes), each through the
+    route ``launch_plan`` gives it; timed beside the plain version, SDPA
+    and the bound. ``launches``: the main path's count of the bf16
+    route."""
     errs, routes, ms, plain, lib = {}, {}, {}, {}, {}
+    kw = dict(kw)
+    kw.setdefault("causal", True)
     mask = ref.gqa_mask(sq, kw.get("kv_positions",
                                    torch.arange(t, device="cuda")),
-                        causal=True, window=0, q_offset=kw.get("q_offset", 0))
+                        causal=kw["causal"], window=kw.get("window", 0),
+                        q_offset=kw.get("q_offset", 0))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = attn_inputs(cfg, LM_SLOTS, sq, t, dtype, seed=sq + t)
+    for dtype in dtypes:
+        q, k, v = attn_inputs(cfg, b, sq, t, dtype, seed=sq + t)
         routes[dtype] = flash.launch_plan(
-            LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            b, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             dtype).route
         errs[dtype] = check_attention(q, k, v, kw)
         ms[dtype] = graph_ms(lambda: ops.gqa_attention(q, k, v, **kw))
         plain[dtype] = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw),
                                 reps=5)
-        # the library call computes the same function: is_causal (top-left
-        # aligned) for S == T from position 0, a boolean key mask for decode
+        # the library call computes the same function: no mask for full
+        # attention, is_causal (top-left aligned) for S == T from position
+        # 0, a boolean key mask otherwise (decode, windows)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if sq == t and "kv_positions" not in kw:
+        plain_keys = "kv_positions" not in kw and not kw.get("window")
+        if plain_keys and not kw["causal"]:
+            lib_fn = lambda: sdpa(qt, kt, vt, enable_gqa=True)  # noqa: E731
+        elif plain_keys and sq == t:
             lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
                                   enable_gqa=True)
         else:
@@ -2102,49 +2159,53 @@ def attention_row(name, cfg, sq, t, kw, launches) -> dict:
     # query sees, and the positions if given.
     visible = int(mask.sum().item())        # (query, key) pairs computed
     keys = int(mask.any(0).sum().item())    # cache rows that must be read
-    matmul = 2.0 * LM_SLOTS * cfg.n_heads * cfg.head_dim * visible
+    matmul = 2.0 * b * cfg.n_heads * cfg.head_dim * visible
     pos = kw.get("kv_positions")
-    elems = (2 * q.numel()
-             + 2 * LM_SLOTS * keys * cfg.n_kv_heads * cfg.head_dim)
+    elems = 2 * q.numel() + 2 * b * keys * cfg.n_kv_heads * cfg.head_dim
     pos_bytes = 0 if pos is None else pos.numel() * pos.element_size()
     bms, by = bound(0.0, 2 * elems + pos_bytes, flops_bf16=2.0 * matmul)
-    # float32 runs on the CUDA cores: every product at their rate
-    bms32, by32 = bound(2.0 * matmul, 4 * elems + pos_bytes)
-    route = routes[torch.bfloat16]
-    log(f"[lm] flash {name} {tuple(q.shape)} x {tuple(k.shape)}: routes "
-        f"bf16 {route}, f32 {routes[torch.float32]}; max abs err bf16 "
-        f"{errs[torch.bfloat16]!r}, f32 {errs[torch.float32]!r}; kernel "
-        f"{ms[torch.bfloat16]:.4f} ms (f32 {ms[torch.float32]:.4f} ms), "
-        f"plain {plain[torch.bfloat16]:.4f} ms (f32 "
-        f"{plain[torch.float32]:.4f}), sdpa {lib[torch.bfloat16]:.4f} ms "
-        f"(f32 {lib[torch.float32]:.4f}; bf16 sdpa vs plain max abs "
-        f"{lib_err:.3g}), bound {bms:.4f} ms ({by}; f32 {bms32:.4f}, "
-        f"{by32}), share {bms / ms[torch.bfloat16]:.3f} (f32 "
-        f"{bms32 / ms[torch.float32]:.3f})")
-    return dict(
+    bf = torch.bfloat16
+    route = routes[bf]
+    msg = (f"[lm] flash {name} ({b}, {sq}, {cfg.n_heads}, {cfg.head_dim}) "
+           f"x ({b}, {t}, {cfg.n_kv_heads}, {cfg.head_dim}): route bf16 "
+           f"{route}, max abs err {errs[bf]!r}; kernel {ms[bf]:.4f} ms, "
+           f"plain {plain[bf]:.4f} ms, sdpa {lib[bf]:.4f} ms (vs plain max "
+           f"abs {lib_err:.3g}), bound {bms:.4f} ms ({by}), share "
+           f"{bms / ms[bf]:.3f}; launches {launches}")
+    row = dict(
         name=f"flash_attention ({name})", route="cuda",
         source=FLASH_SOURCES[route],
         replaces="src/repro/kernels/flash_attention.py:77",
-        launches=launches, max_abs_err=errs[torch.bfloat16],
-        max_abs_err_f32=errs[torch.float32], ms=ms[torch.bfloat16],
-        f32_ms=ms[torch.float32], plain_ms=plain[torch.bfloat16],
-        f32_plain_ms=plain[torch.float32], bound_ms=bms, bound_by=by,
-        f32_bound_ms=bms32, f32_bound_by=by32,
-        library_ms=lib[torch.bfloat16], f32_library_ms=lib[torch.float32],
-        library_max_abs_err=lib_err,
-        kernel_route=route, f32_route=routes[torch.float32],
-        f32_source=FLASH_SOURCES[routes[torch.float32]],
-        shape=[LM_SLOTS, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        launches=launches, max_abs_err=errs[bf], ms=ms[bf],
+        plain_ms=plain[bf], bound_ms=bms, bound_by=by, library_ms=lib[bf],
+        library_max_abs_err=lib_err, kernel_route=route,
+        shape=[b, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
         dtype="bfloat16", ok=True)
+    f32 = torch.float32
+    if f32 in dtypes:
+        # float32 runs on the CUDA cores: every product at their rate
+        bms32, by32 = bound(2.0 * matmul, 4 * elems + pos_bytes)
+        msg += (f"; f32 route {routes[f32]}, max abs err {errs[f32]!r}, "
+                f"kernel {ms[f32]:.4f} ms, plain {plain[f32]:.4f} ms, sdpa "
+                f"{lib[f32]:.4f} ms, bound {bms32:.4f} ms ({by32}), share "
+                f"{bms32 / ms[f32]:.3f}")
+        row.update(max_abs_err_f32=errs[f32], f32_ms=ms[f32],
+                   f32_plain_ms=plain[f32], f32_bound_ms=bms32,
+                   f32_bound_by=by32, f32_library_ms=lib[f32],
+                   f32_route=routes[f32],
+                   f32_source=FLASH_SOURCES[routes[f32]])
+    log(msg)
+    return row
 
 
-def check_decode_vs_forward(cfg) -> float:
-    """float32 at full width: decode step by step reproduces the
-    teacher-forced forward's logits (tests/test_models.py:107-109)."""
+def check_decode_vs_forward(cfg, shape) -> float:
+    """float32 at full width: decode step by step from fresh caches
+    reproduces the teacher-forced forward's logits over ``shape`` (B, S)
+    tokens (tests/test_models.py:88-109's contract)."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     bundle = build_model(cfg32)
     params = bundle.init(1)
-    b, s = LM_TF_SHAPE
+    b, s = shape
     g = torch.Generator(device="cuda").manual_seed(5)
     tok = torch.randint(0, cfg.vocab, (b, s), device="cuda", generator=g)
     with torch.inference_mode():
@@ -2155,8 +2216,8 @@ def check_decode_vs_forward(cfg) -> float:
                                            caches)[0] for i in range(s)], 1)
     over = (steps - tf).abs() - (2e-3 + 2e-2 * tf.abs())
     check(torch.isfinite(steps).all().item(), "decode logits not finite")
-    check(over.max().item() <= 0, f"float32 decode vs forward outside "
-          f"rtol 2e-2 / atol 2e-3 by {over.max().item()}")
+    check(over.max().item() <= 0, f"{cfg.name} float32 decode vs forward "
+          f"outside rtol 2e-2 / atol 2e-3 by {over.max().item()}")
     return (steps - tf).abs().max().item()
 
 
@@ -2255,13 +2316,425 @@ def phase_lm(profile: bool) -> list[dict]:
           "split-KV decode")
     del params, bundle
     torch.cuda.empty_cache()
-    err = check_decode_vs_forward(cfg)
+    err = check_decode_vs_forward(cfg, LM_TF_SHAPE)
     log(f"[lm] float32 decode vs forward {LM_TF_SHAPE}: max abs err "
         f"{err!r} (rtol 2e-2, atol 2e-3)")
     share = cfg.n_layers * rows[1]["ms"] / step_ms
     log(f"[lm] flash decode kernels per step {cfg.n_layers} x "
         f"{rows[1]['ms']:.4f} ms = {share:.3f} of a warm decode step")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8, continued: every other model family, served on the card
+# ---------------------------------------------------------------------------
+def family_config(arch: str, layers: int = 0, **kw):
+    """The arch at its published widths, cut to ``layers`` (0: its own
+    depth; an enc-dec cut cuts the encoder too)."""
+    cfg = get_config(arch)
+    if layers:
+        kw["n_layers"] = layers
+        if cfg.enc_dec:
+            kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=layers)
+    return dataclasses.replace(cfg, **kw)
+
+
+def attention_layers(cfg) -> int:
+    return (cfg.n_layers if cfg.enc_dec else
+            sum(k in transformer.ATTN_KINDS
+                for k in transformer.layer_kinds(cfg)))
+
+
+def family_batch(cfg, b: int, g: torch.Generator) -> dict:
+    """Seeded prefill inputs: (b, FAM_PREFILL) tokens; a VLM's patches take
+    its n_patches of those positions; whisper gets its n_frames stub
+    frames and WHISPER_PREFILL_TOKENS tokens."""
+    n_tok = FAM_PREFILL
+    batch = {}
+    if cfg.family == "vlm":
+        enc = cfg.encoder
+        batch["patches"] = torch.randn(
+            (b, enc.n_patches, enc.frontend_dim or cfg.d_model),
+            device="cuda", generator=g).to(torch.bfloat16)
+        n_tok -= enc.n_patches
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), device="cuda",
+            generator=g).to(torch.bfloat16)
+        n_tok = WHISPER_PREFILL_TOKENS
+    batch["tokens"] = torch.randint(0, cfg.vocab, (b, n_tok), device="cuda",
+                                    generator=g)
+    return batch
+
+
+def flash_key(route: str, b: int, sq: int, t: int, h: int, hkv: int,
+              d: int, causal: bool, window: int) -> tuple:
+    """What tells one flash call's shape from another's on the paths."""
+    return (route, b, sq, t, h, hkv, d, bool(causal), window > 0)
+
+
+@contextlib.contextmanager
+def tallying_flash(tally: collections.Counter):
+    """Tally every flash launch by ``flash_key``, beside the route counters
+    the wrapper keeps (their sums per route are checked against them)."""
+    inner = ops._launch_flash
+
+    def launch(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        b, sq, h, d = q.shape
+        t, hkv = k.shape[1], k.shape[2]
+        route = flash.launch_plan(b, sq, t, h, hkv, d, q.dtype).route
+        tally[flash_key(route, b, sq, t, h, hkv, d, kw["causal"],
+                        kw["window"])] += 1
+        return out
+    ops._launch_flash = launch
+    try:
+        yield
+    finally:
+        ops._launch_flash = inner
+
+
+def family_path(arch: str, layers: int) -> dict:
+    """The family's main path on the card (counts zeroed just before it,
+    read just after): one wave of FAM_PROMPTS prompts of FAM_PROMPT_LEN
+    tokens through ``ServeEngine`` (4 slots), FAM_NEW_TOKENS new tokens
+    each (whisper: its stub frames encoded at batch 4, then FAM_NEW_TOKENS
+    greedy decode steps), then one prefill of (1, FAM_PREFILL). Every flash
+    call of a decode step takes the split-KV route and every prefill call
+    the tensor-core route."""
+    cfg = family_config(arch, layers)
+    t0 = time.perf_counter()
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device="cuda").manual_seed(23)
+    batch = family_batch(cfg, 1, g)
+    finite = []
+    if cfg.enc_dec:
+        frames = torch.randn((FAM_PROMPTS, cfg.encoder.n_frames,
+                              cfg.d_model), device="cuda",
+                             generator=g).to(torch.bfloat16)
+        first = torch.randint(0, cfg.vocab, (FAM_PROMPTS, 1), device="cuda",
+                              generator=g)
+
+        def serve():
+            enc = encdec.encode(params, frames)
+            caches = bundle.init_cache(FAM_PROMPTS, FAM_MAX_SEQ,
+                                       params=params, enc_out=enc)
+            tok, out = first, []
+            for _ in range(FAM_NEW_TOKENS):
+                logits, caches = bundle.decode(params, tok, caches)
+                finite.append(torch.isfinite(logits).all())
+                tok = torch.argmax(logits, -1)[:, None]
+                out.append(tok)
+            return torch.cat(out, 1).cpu().numpy()
+    else:
+        engine = ServeEngine(cfg, slots=FAM_PROMPTS, max_seq=FAM_MAX_SEQ,
+                             params=params)
+        rng = np.random.default_rng(13)
+        for _ in range(FAM_PROMPTS):
+            engine.submit(rng.integers(0, cfg.vocab, FAM_PROMPT_LEN),
+                          max_new_tokens=FAM_NEW_TOKENS)
+        inner = engine._decode
+
+        def decode(p, t, c):  # every step's logits checked, read at the end
+            logits, c = inner(p, t, c)
+            finite.append(torch.isfinite(logits).all())
+            return logits, c
+        engine._decode = decode
+
+        def serve():
+            return engine.run()
+
+    tally = collections.Counter()
+    # --- the family's main path: counts zeroed just before, read after ---
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), tallying_flash(tally):
+        results = serve()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode(), tallying_flash(tally):
+        pre = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill_first = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    # -----------------------------------------------------------------------
+    n_attn = attention_layers(cfg)
+    if cfg.enc_dec:
+        steps = FAM_NEW_TOKENS
+        generated = FAM_PROMPTS * FAM_NEW_TOKENS
+        # decode: self and cross attention a layer a step; prefill: the
+        # encoder's layers (at batch 4 and 1), the decoder's self and cross
+        want_split = 2 * n_attn * steps
+        want_tc = 2 * cfg.encoder.n_layers + 2 * n_attn
+        check(results.shape == (FAM_PROMPTS, FAM_NEW_TOKENS), "tokens")
+    else:
+        steps = engine.stats["steps"]
+        generated = sum(len(r) for r in results.values())
+        want_split, want_tc = n_attn * steps, n_attn
+        check(sorted(results) == list(range(1, FAM_PROMPTS + 1))
+              and all(len(r) == FAM_NEW_TOKENS for r in results.values())
+              and engine.stats["waves"] == 1, f"{arch}: served {results}, "
+              f"stats {engine.stats}")
+    check(launches["flash_decode_split"] == want_split
+          and launches["flash_prefill_tc"] == want_tc
+          and launches["flash_simt"] == 0
+          and launches["flash_attention"] == want_split + want_tc,
+          f"{arch}: flash routes: {want_split} split-KV and {want_tc} "
+          f"tensor-core calls expected, got {launches}")
+    for route, counter in flash.ROUTE_COUNTERS.items():
+        check(sum(n for key, n in tally.items() if key[0] == route)
+              == launches[counter], f"{arch}: the shape tally of route "
+              f"{route} disagrees with its counter: {dict(tally)}")
+    check(all(launches[k] == 0 for k in JOIN_KERNELS), "join kernels ran")
+    check(torch.stack(finite).all().item(), f"{arch}: non-finite logits")
+    check(pre.shape == (1, cfg.vocab) and torch.isfinite(pre).all().item(),
+          f"{arch}: prefill logits")
+    drops = []
+    if cfg.moe is not None:  # the same prefill again, its routing recorded
+        calls = []
+        with torch.inference_mode(), recording_routes(calls):
+            bundle.prefill(params, batch)
+        drops = [int((~keep).sum()) for _, _, keep in calls]
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: bundle.prefill(params, batch), reps=1)
+    shape = {k: tuple(v.shape) for k, v in batch.items()}
+    log(f"[lm] {arch}: {cfg.n_layers} layers ({n_attn} attention), "
+        f"d_model {cfg.d_model}, {n_params} params in "
+        f"{cfg.param_dtype}, made on the card in {t_init:.2f} s")
+    log(f"[lm] {arch}: {steps} decode steps at batch {FAM_PROMPTS} in "
+        f"{t_serve:.3f} s: {t_serve * 1e3 / steps:.3f} ms/step, "
+        f"{generated / t_serve:.1f} generated tokens/s; prefill {shape}: "
+        f"first {t_prefill_first * 1e3:.1f} ms, warm {prefill_ms:.1f} ms; "
+        f"flash launches split {launches['flash_decode_split']}, tc "
+        f"{launches['flash_prefill_tc']}, simt {launches['flash_simt']}; by "
+        f"shape (route, B, Sq, T, H, Hkv, D, causal, windowed): "
+        f"{sorted(tally.items())}")
+    if drops:
+        m = cfg.moe
+        log(f"[lm] {arch}: MoE assignments dropped per MoE layer in the "
+            f"prefill ({FAM_PREFILL} tokens x top-{m.top_k}, capacity "
+            f"{moe_mod.capacity(m, FAM_PREFILL)} of {m.num_experts} "
+            f"experts): {drops}")
+    return dict(arch=arch, cfg=cfg, launches=launches, tally=tally,
+                steps=steps,
+                ms_step=t_serve * 1e3 / steps,
+                tokens_s=generated / t_serve, prefill_ms=prefill_ms,
+                prefill_first_ms=t_prefill_first * 1e3, drops=drops,
+                params=n_params, init_s=t_init)
+
+
+@contextlib.contextmanager
+def recording_routes(calls: list):
+    """Record (probs, expert ids, keep) of every MoE routing call."""
+    inner = moe_mod.route
+
+    def route(logits, m):
+        out = inner(logits, m)
+        calls.append((out[0], out[2], out[4]))
+        return out
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = inner
+
+
+def family_logits(bundle, params, batch: dict, n_decode: int):
+    """float32 logits of a forward over every position (VLM: patches
+    first; enc-dec: the decoder over the encoded frames), then of
+    ``n_decode`` decode steps over the first tokens from fresh caches."""
+    tok = batch["tokens"]
+    b = tok.shape[0]
+    if bundle.cfg.enc_dec:
+        enc = encdec.encode(params, batch["frames"])
+        fwd = encdec.logits(params, encdec.decode_train(params, tok, enc))
+        caches = bundle.init_cache(b, n_decode, params=params, enc_out=enc)
+    else:
+        hidden, _ = transformer.forward(params, tok,
+                                        patch_embeds=batch.get("patches"))
+        fwd = transformer.lm_logits(params, hidden)
+        caches = bundle.init_cache(b, n_decode)
+    steps = [bundle.decode(params, tok[:, i:i + 1], caches)[0]
+             for i in range(n_decode)]
+    return fwd, torch.stack(steps, 1)
+
+
+def card_vs_cpu(arch: str) -> dict:
+    """float32 at full width and CPU_CHECK_LAYERS layers: the logits on the
+    card (the kernels) against the port's CPU plain path on the same
+    weights and inputs, |card − cpu| ≤ CARD_CPU_TOL · (1 + |cpu|). MoE: the
+    top-k expert ids of every routing call agree wherever the CPU's k-th
+    and (k+1)-th router probabilities differ by more than ROUTER_TOL; a
+    token routed otherwise (only inside that band) changes every later
+    position of its sequence, so those positions are left out of the
+    logits check and counted."""
+    cfg = family_config(arch, CPU_CHECK_LAYERS, param_dtype="float32")
+    b, s = CPU_CHECK_TOKENS
+    g = torch.Generator(device="cuda").manual_seed(21)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device="cuda",
+                                     generator=g)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (b, CPU_CHECK_PATCHES, cfg.encoder.frontend_dim), device="cuda",
+            generator=g)
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((b, cfg.encoder.n_frames, cfg.d_model),
+                                      device="cuda", generator=g)
+    params = build_model(cfg).init(2)
+    out, routes = {}, {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            params = params.to("cpu")
+            batch = {k: v.cpu() for k, v in batch.items()}
+        routes[device] = []
+        with torch.inference_mode(), recording_routes(routes[device]):
+            out[device] = family_logits(build_model(cfg, device=device),
+                                        params, batch, CPU_CHECK_DECODE)
+    p = batch.get("patches")
+    n_fwd = s + (0 if p is None else p.shape[1])
+    # positions (b, forward position) and (b, decode step) downstream of a
+    # token the two devices routed to different experts
+    dirty_fwd = torch.zeros((b, n_fwd), dtype=torch.bool)
+    dirty_dec = torch.zeros((b, CPU_CHECK_DECODE), dtype=torch.bool)
+    checked = near = 0
+    k = cfg.moe.top_k if cfg.moe is not None else 0
+    n_moe = len(routes["cpu"]) // (1 + CPU_CHECK_DECODE) if k else 0
+    for i, ((_, ic, _), (pr, ir, _)) in enumerate(
+            zip(routes["cuda"], routes["cpu"], strict=True)):
+        ranked = torch.sort(pr, dim=-1, descending=True).values
+        margin = ranked[:, k - 1] - ranked[:, k]
+        flip = (torch.sort(ic.cpu(), -1).values
+                != torch.sort(ir, -1).values).any(-1)
+        check(not (flip & (margin > ROUTER_TOL)).any().item(),
+              f"{arch}: top-{k} expert ids differ where the router's "
+              f"margin exceeds {ROUTER_TOL}")
+        checked += int((margin > ROUTER_TOL).sum())
+        near += int((margin <= ROUTER_TOL).sum())
+        if i < n_moe:
+            dirty_fwd |= flip.reshape(b, n_fwd)
+        else:
+            dirty_dec[:, (i - n_moe) // n_moe] |= flip
+    dirty_fwd = dirty_fwd.cummax(1).values
+    dirty_dec = dirty_dec.cummax(1).values
+    errs = []
+    for got, want, dirty in zip(out["cuda"], out["cpu"],
+                                (dirty_fwd, dirty_dec)):
+        got, keep = got.cpu()[~dirty], want[~dirty]
+        check(torch.isfinite(got).all().item(), f"{arch}: card logits")
+        over = (got - keep).abs() - CARD_CPU_TOL * (1.0 + keep.abs())
+        check(over.numel() == 0 or over.max().item() <= 0,
+              f"{arch}: card vs CPU float32 logits outside {CARD_CPU_TOL} "
+              f"by {over.max().item()}")
+        errs.append((got - keep).abs().max().item() if got.numel() else 0.0)
+    log(f"[lm] {arch} float32, {CPU_CHECK_LAYERS} layers at full width, "
+        f"card vs CPU: forward {tuple(out['cpu'][0].shape)} max abs err "
+        f"{errs[0]!r}, {CPU_CHECK_DECODE} decode steps {errs[1]!r} (tol "
+        f"{CARD_CPU_TOL}); positions left out after a router flip: "
+        f"{int(dirty_fwd.sum())} + {int(dirty_dec.sum())}"
+        + (f"; routing calls {len(routes['cpu'])}, top-{k} ids checked on "
+           f"{checked} tokens, {near} inside the {ROUTER_TOL} band"
+           if k else ""))
+    return dict(forward_err=errs[0], decode_err=errs[1],
+                left_out=int(dirty_fwd.sum() + dirty_dec.sum()))
+
+
+def family_rows(fams: dict) -> list[dict]:
+    """Every flash shape of the families' paths against the plain version,
+    timed (bf16, the paths' dtype). A row's launches: the main paths' calls
+    of its shape, from the tally ``family_path`` took; every shape a path
+    launched must have its row."""
+    moe_cfg = fams["olmoe-1b-7b"]["cfg"]
+    rg = fams["recurrentgemma-2b"]["cfg"]
+    vlm = fams["internvl2-26b"]["cfg"]
+    wh = fams["whisper-small"]["cfg"]
+    frames = wh.encoder.n_frames
+    moe_archs = ("olmoe-1b-7b", "deepseek-moe-16b")
+    written = FAM_PROMPT_LEN + FAM_NEW_TOKENS - 1  # the last step's cache
+    dec = dict(q_offset=written - 1,
+               kv_positions=rolling_positions(FAM_MAX_SEQ, written))
+    # whisper's decoder starts with no prompt: its last step's cache
+    wh_dec = dict(q_offset=FAM_NEW_TOKENS - 1,
+                  kv_positions=rolling_positions(FAM_MAX_SEQ,
+                                                 FAM_NEW_TOKENS))
+    # decode past recurrentgemma's window: every slot written, wrapped
+    wrapped = FAM_MAX_SEQ + 53
+    rg_t = min(FAM_MAX_SEQ, rg.window)
+    rg_dec = dict(window=rg.window, q_offset=wrapped - 1,
+                  kv_positions=rolling_positions(rg_t, wrapped))
+    nc = dict(causal=False)
+    p = FAM_PROMPTS
+    # (name, arch(s), cfg, b, sq, t, kw)
+    specs = [
+        ("moe prefill (MHA, D 128)", moe_archs, moe_cfg, 1, FAM_PREFILL,
+         FAM_PREFILL, {}),
+        ("moe decode (MHA, D 128)", moe_archs, moe_cfg, p, 1, FAM_MAX_SEQ,
+         dec),
+        ("recurrentgemma prefill (D 256, g 10, window 2048)",
+         ("recurrentgemma-2b",), rg, 1, FAM_PREFILL, FAM_PREFILL,
+         dict(window=rg.window)),
+        ("recurrentgemma decode (rolling window, wrapped)",
+         ("recurrentgemma-2b",), rg, p, 1, rg_t, rg_dec),
+        ("internvl2 prefill (g 6)", ("internvl2-26b",), vlm, 1, FAM_PREFILL,
+         FAM_PREFILL, {}),
+        ("internvl2 decode (g 6)", ("internvl2-26b",), vlm, p, 1,
+         FAM_MAX_SEQ, dec),
+        ("whisper encoder, served (non-causal, T 1500)", ("whisper-small",),
+         wh, p, frames, frames, nc),
+        ("whisper encoder, prefill (non-causal, T 1500)",
+         ("whisper-small",), wh, 1, frames, frames, nc),
+        ("whisper self decode (D 64)", ("whisper-small",), wh, p, 1,
+         FAM_MAX_SEQ, wh_dec),
+        ("whisper cross decode (non-causal, T 1500)", ("whisper-small",),
+         wh, p, 1, frames, nc),
+        ("whisper self prefill (D 64)", ("whisper-small",), wh, 1,
+         WHISPER_PREFILL_TOKENS, WHISPER_PREFILL_TOKENS, {}),
+        ("whisper cross prefill (non-causal, T 1500)", ("whisper-small",),
+         wh, 1, WHISPER_PREFILL_TOKENS, frames, nc),
+    ]
+    covered, rows = set(), []
+    for name, archs, cfg, b, sq, t, kw in specs:
+        route = flash.launch_plan(b, sq, t, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, torch.bfloat16).route
+        key = flash_key(route, b, sq, t, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, kw.get("causal", True),
+                        kw.get("window", 0))
+        n = sum(fams[a]["tally"][key] for a in archs)
+        check(n > 0, f"flash {name}: no call of shape {key} on "
+              f"{', '.join(archs)}'s path")
+        covered |= {(a, key) for a in archs}
+        rows.append(attention_row(name, cfg, sq, t, kw, n, b,
+                                  (torch.bfloat16,)))
+    missed = [(a, key) for a, f in fams.items() for key in f["tally"]
+              if (a, key) not in covered]
+    check(not missed, f"flash shapes on the paths with no row: {missed}")
+    return rows
+
+
+def phase_lm_families() -> list[dict]:
+    fams = {}
+    for arch, layers in FAMILIES.items():
+        t0 = time.perf_counter()
+        fams[arch] = family_path(arch, layers)
+        torch.cuda.empty_cache()
+        if arch in TF_CHECKS:
+            n_layers, shape = TF_CHECKS[arch]
+            err = check_decode_vs_forward(family_config(arch, n_layers),
+                                          shape)
+            log(f"[lm] {arch} float32, {n_layers} layers at full width: "
+                f"decode vs forward {shape} max abs err {err!r} (rtol 2e-2, "
+                f"atol 2e-3)")
+            fams[arch]["tf_err"] = err
+        else:
+            fams[arch].update(card_vs_cpu(arch))
+        torch.cuda.empty_cache()
+        log(f"[lm] {arch} {time.perf_counter() - t0:.1f} s")
+    return family_rows(fams)
 
 
 def profile_lm_decode(bundle, params, tok) -> None:
@@ -2341,6 +2814,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_lm = time.perf_counter()
     kernels += phase_lm(args.profile)
+    kernels += phase_lm_families()
     log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
     log(f"[done] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,16 @@
 """Carry the JAX package's parameters and decode caches across to the port.
 
-The reference stacks each pattern group's layers (``params["groups"][gi]
-[pi][...]`` has a leading repeat axis ``r``); layer ``start + r *
-len(pattern) + pi`` of the port takes slice ``r``. Inputs are the
-reference's pytrees with every leaf already a numpy array
-(``jax.tree_util.tree_map(np.asarray, params)``), so nothing here imports
-JAX. bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) keep their bits.
+Decoder-only models: the reference stacks each pattern group's layers
+(``params["groups"][gi][pi][...]`` has a leading repeat axis ``r``); layer
+``start + r * len(pattern) + pi`` of the port takes slice ``r``. The MoE
+FFN (float32 router, experts stacked over E), the SSM and RG-LRU blocks
+and the VLM frontend keep the reference's names under their layer. Enc-dec
+models keep the reference's unstacked ``encoder``/``decoder`` lists. A
+``"table"`` or ``"kernel"`` leaf of an embedding or head is the port's
+parameter of the enclosing name. Inputs are the reference's pytrees with
+every leaf already a numpy array (``jax.tree_util.tree_map(np.asarray,
+params)``), so nothing here imports JAX. bfloat16 leaves (numpy's
+``ml_dtypes`` bfloat16) keep their bits.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def _groups(cfg: ArchConfig) -> list[tuple[int, tuple[str, ...], int]]:
@@ -55,10 +60,12 @@ def to_torch(x, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in tree.items():
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a pytree of dicts and lists."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
         path = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v, path + ".")
         else:
             yield path, v
@@ -72,31 +79,44 @@ def _layer_slices(cfg: ArchConfig, stacked_groups: list):
                 yield start + r * len(pattern) + pi, stacked_groups[gi][pi], r
 
 
-def params_from_jax(np_params: dict, cfg: ArchConfig,
-                    device=None) -> transformer.LM:
-    """The reference's parameter pytree (numpy leaves) → an ``LM`` on
-    ``device`` holding the same values in the same dtype."""
-    model = transformer.LM(cfg, device=device)
+def _port_name(path: str) -> str:
+    """``embed.table`` → ``embed``, ``lm_head.kernel`` → ``lm_head``; other
+    paths are the port's as they are."""
+    for leaf in (".table", ".kernel"):
+        if path.endswith(leaf) and path.count(".") == 1:
+            return path[:-len(leaf)]
+    return path
+
+
+def _named_leaves(np_params: dict, cfg: ArchConfig):
+    """(port parameter name, value) of every reference leaf."""
+    for path, leaf in _leaves({k: v for k, v in np_params.items()
+                               if k != "groups"}):
+        yield _port_name(path), leaf
+    if cfg.enc_dec:
+        return
+    for li, tree, r in _layer_slices(cfg, np_params["groups"]):
+        for path, leaf in _leaves(tree):
+            yield f"layers.{li}.{path}", np.asarray(leaf)[r]
+
+
+def params_from_jax(np_params: dict, cfg: ArchConfig, device=None):
+    """The reference's parameter pytree (numpy leaves) → an ``LM`` (or an
+    ``EncDec``) on ``device`` holding the same values in the same dtype."""
+    model = (encdec.EncDec(cfg, device=device) if cfg.enc_dec
+             else transformer.LM(cfg, device=device))
     dev = model.device
     seen = set()
-
-    def put(name: str, value) -> None:
-        p = model.get_parameter(name)
-        v = to_torch(value, dev)
-        if tuple(v.shape) != tuple(p.shape) or v.dtype != p.dtype:
-            raise ValueError(f"{name}: reference {tuple(v.shape)} {v.dtype}"
-                             f" vs port {tuple(p.shape)} {p.dtype}")
-        p.copy_(v)
-        seen.add(name)
-
     with torch.no_grad():
-        put("embed", np_params["embed"]["table"])
-        put("final_norm.scale", np_params["final_norm"]["scale"])
-        if "lm_head" in np_params:
-            put("lm_head", np_params["lm_head"]["kernel"])
-        for li, tree, r in _layer_slices(cfg, np_params["groups"]):
-            for path, leaf in _leaves(tree):
-                put(f"layers.{li}.{path}", np.asarray(leaf)[r])
+        for name, value in _named_leaves(np_params, cfg):
+            p = model.get_parameter(name)
+            v = to_torch(value, dev)
+            if tuple(v.shape) != tuple(p.shape) or v.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {tuple(v.shape)} "
+                                 f"{v.dtype} vs port {tuple(p.shape)} "
+                                 f"{p.dtype}")
+            p.copy_(v)
+            seen.add(name)
     missing = {n for n, _ in model.named_parameters()} - seen
     if missing:
         raise ValueError(f"parameters the reference did not give: "
@@ -104,14 +124,30 @@ def params_from_jax(np_params: dict, cfg: ArchConfig,
     return model
 
 
-def cache_from_jax(np_caches: list, cfg: ArchConfig,
-                   device=None) -> list[dict]:
-    """The reference's stacked decode caches (numpy leaves) → the port's
-    per-layer cache dicts."""
+def _cache_dict(c: dict, r=None, device=None) -> dict:
+    """One layer's cache (slice ``r`` of stacked leaves): ``pos`` a host
+    int, every other leaf a tensor."""
+    def pick(v):
+        v = np.asarray(v)
+        return v if r is None else v[r]
+    return {k: int(pick(v)) if k == "pos" else to_torch(pick(v), device)
+            for k, v in c.items()}
+
+
+def cache_from_jax(np_caches, cfg: ArchConfig, device=None):
+    """The reference's decode caches (numpy leaves) → the port's: for a
+    decoder-only model one dict per layer (attention: k, v, kpos, pos; SSM
+    and RG-LRU: state, conv); for enc-dec the reference's dict of
+    ``self`` caches, ``cross_k``/``cross_v`` lists and ``pos``."""
+    if cfg.enc_dec:
+        return {"self": [_cache_dict(c, device=device)
+                         for c in np_caches["self"]],
+                "cross_k": [to_torch(k, device)
+                            for k in np_caches["cross_k"]],
+                "cross_v": [to_torch(v, device)
+                            for v in np_caches["cross_v"]],
+                "pos": int(np.asarray(np_caches["pos"]))}
     out: list = [None] * cfg.n_layers
     for li, c, r in _layer_slices(cfg, np_caches):
-        out[li] = {"k": to_torch(np.asarray(c["k"])[r], device),
-                   "v": to_torch(np.asarray(c["v"])[r], device),
-                   "kpos": to_torch(np.asarray(c["kpos"])[r], device),
-                   "pos": int(np.asarray(c["pos"])[r])}
+        out[li] = _cache_dict(c, r, device)
     return out

@@ -128,13 +128,33 @@ class MLP(nn.Module):
 
 
 # ---------------------------------------------------------------------------
+# depthwise causal conv (the SSM and RG-LRU blocks' input conv)
+# ---------------------------------------------------------------------------
+def causal_conv(seq: torch.Tensor, w: torch.Tensor,
+                state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along dim 1: seq (B, S, C), w (W, C), state
+    (B, W − 1, C) of the rows before seq (zeros when None) → (out
+    (B, S, C), new state: the last W − 1 rows). The taps are summed in
+    order in seq's dtype, as the reference's Python ``sum`` does."""
+    wsize, s = w.shape[0], seq.shape[1]
+    if state is None:
+        state = seq.new_zeros((seq.shape[0], wsize - 1, seq.shape[2]))
+    full = torch.cat([state, seq], dim=1)
+    out = sum(full[:, i:i + s] * w[i] for i in range(wsize))
+    return out, (full[:, -(wsize - 1):] if wsize > 1 else state)
+
+
+# ---------------------------------------------------------------------------
 # GQA attention (full / sliding-window) through the flash kernel
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """Self-attention with an optional decode cache. Cross-attention
-    (``kv_x``) belongs to the enc-dec family, which is not ported yet."""
+    """Causal self-attention with an optional decode cache (``forward``), or
+    non-causal attention without RoPE over keys and values given (``attend``:
+    the enc-dec encoder's self-attention and the decoder's cross-attention).
+    ``cross=True`` builds the cross-attention of the enc-dec decoder, which
+    has no qk-norm (as the reference's ``init_attention(cross=True)``)."""
 
-    def __init__(self, gen, cfg: ArchConfig, device):
+    def __init__(self, gen, cfg: ArchConfig, device, cross: bool = False):
         super().__init__()
         d, hd, dtype = cfg.d_model, cfg.head_dim, dtype_of(cfg)
         self.cfg = cfg
@@ -144,28 +164,47 @@ class Attention(nn.Module):
         self.wv = _param(dense_init(gen, d, cfg.n_kv_heads * hd, dtype,
                                     device))
         self.wo = _param(dense_init(gen, cfg.n_heads * hd, d, dtype, device))
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = RMSNorm(hd, dtype, device)
             self.k_norm = RMSNorm(hd, dtype, device)
 
+    def query(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, d) → q (B, S, H, D), qk-normed where the layer has it."""
+        cfg = self.cfg
+        q = (x @ self.wq).view(*x.shape[:2], cfg.n_heads, cfg.head_dim)
+        return self.q_norm(q, cfg.norm_eps) if hasattr(self, "q_norm") else q
+
+    def keys_values(self, src: torch.Tensor):
+        """src (B, T, d) → (k, v), each (B, T, Hkv, D); k qk-normed where
+        the layer has it."""
+        cfg = self.cfg
+        shape = (*src.shape[:2], cfg.n_kv_heads, cfg.head_dim)
+        k = (src @ self.wk).view(shape)
+        v = (src @ self.wv).view(shape)
+        if hasattr(self, "k_norm"):
+            k = self.k_norm(k, cfg.norm_eps)
+        return k, v
+
+    def attend(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> torch.Tensor:
+        """x (B, S, d) attending to (k, v) (B, T, Hkv, D) from
+        ``keys_values``, non-causal, no RoPE → y (B, S, d)."""
+        return self.project(kops.gqa_attention(self.query(x), k, v,
+                                               causal=False))
+
     def forward(self, x: torch.Tensor, rope, *, kind: str = "global",
                 cache: Optional[dict] = None):
-        """x (B, S, d); rope = (cos, sin) from ``rope_tables`` or None.
-        → (y (B, S, d), cache). The cache is updated in place (the
-        reference returns a new one): rows (pos0 + arange(S)) % steps of
-        k/v and kpos are written, and pos advances by S."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        q = (x @ self.wq).view(b, s, cfg.n_heads, cfg.head_dim)
-        k = (x @ self.wk).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ self.wv).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = self.q_norm(q, cfg.norm_eps)
-            k = self.k_norm(k, cfg.norm_eps)
+        """Causal self-attention: x (B, S, d); rope = (cos, sin) from
+        ``rope_tables`` or None. → (y (B, S, d), cache). The cache is
+        updated in place (the reference returns a new one): rows
+        (pos0 + arange(S)) % steps of k/v and kpos are written, and pos
+        advances by S."""
+        q = self.query(x)
+        k, v = self.keys_values(x)
+        window = self.cfg.window if kind == "local" else 0
         if rope is not None:
             q = rotate(q, *rope)
             k = rotate(k, *rope)
-        window = cfg.window if kind == "local" else 0
         if cache is None:
             out = kops.gqa_attention(q, k, v, causal=True, window=window)
         else:
@@ -174,8 +213,12 @@ class Attention(nn.Module):
             out = kops.gqa_attention(q, cache["k"], cache["v"], causal=True,
                                      window=window, q_offset=pos0,
                                      kv_positions=cache["kpos"])
-        y = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ self.wo
-        return y, cache
+        return self.project(out), cache
+
+    def project(self, out: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, D) heads → (B, S, d) through ``wo``."""
+        b, s = out.shape[:2]
+        return out.reshape(b, s, -1) @ self.wo
 
 
 def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,

@@ -1,15 +1,13 @@
-"""Decoder-only LM: the attention families (dense, with global and local
-layers) of the JAX package's ``models/transformer.py``.
+"""Decoder-only LM covering dense / MoE / SSM / hybrid / VLM: a port of the
+JAX package's ``models/transformer.py``.
 
 The reference stacks each pattern group's parameters and runs it under
 ``lax.scan``; here the layers are a plain ``nn.ModuleList`` run by a Python
 loop (PyTorch runs eagerly, so there is no program size to bound). Layer
-``i`` has kind ``block_pattern[i % len(block_pattern)]``, which is what the
-reference's groups give each layer. ``convert.params_from_jax`` maps the
-stacked pytree onto these layers. Decode caches are one dict per layer.
-
-Not ported yet (each raises ``NotImplementedError``): SSM and RG-LRU
-blocks, MoE FFNs, the VLM frontend (ROADMAP module item 8).
+``i`` has kind ``block_pattern[i % len(block_pattern)]`` and takes the MoE
+FFN from ``moe.first_k_dense`` on, which is what the reference's groups
+give each layer. ``convert.params_from_jax`` maps the stacked pytree onto
+these layers. Decode caches are one dict per layer, of the layer's kind.
 """
 from __future__ import annotations
 
@@ -21,13 +19,11 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 
 ATTN_KINDS = ("global", "local")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP module item 8)")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -39,50 +35,82 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
 # per-layer blocks
 # ---------------------------------------------------------------------------
 class Block(nn.Module):
-    """Pre-norm attention + SwiGLU block."""
+    """Pre-norm mixer (attention, SSD or RG-LRU) and, but for the
+    single-branch SSM block, a pre-norm FFN (SwiGLU or MoE)."""
 
-    def __init__(self, gen, cfg: ArchConfig, kind: str, device):
+    def __init__(self, gen, cfg: ArchConfig, kind: str, layer_idx: int,
+                 device):
         super().__init__()
-        if kind not in ATTN_KINDS:
-            raise _not_ported(f"block kind {kind!r}")
-        if cfg.moe is not None:
-            raise _not_ported("the MoE FFN (models/moe.py, moe_a2a.py)")
         dtype = L.dtype_of(cfg)
         self.cfg, self.kind = cfg, kind
         self.norm_in = L.RMSNorm(cfg.d_model, dtype, device)
+        if kind in ATTN_KINDS:
+            self.attn = L.Attention(gen, cfg, device)
+        elif kind == "ssm":
+            self.ssm = ssm_mod.SSM(gen, cfg, device)
+            return  # mamba blocks are single-branch: no norm_mid, no FFN
+        elif kind == "rglru":
+            self.rglru = rglru_mod.RGLRU(gen, cfg, device)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
         self.norm_mid = L.RMSNorm(cfg.d_model, dtype, device)
-        self.attn = L.Attention(gen, cfg, device)
-        self.mlp = L.MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        if cfg.moe is not None and layer_idx >= cfg.moe.first_k_dense:
+            self.moe = moe_mod.MoE(gen, cfg, device)
+        else:
+            d_ff = cfg.d_ff if cfg.moe is None else \
+                (cfg.moe.d_ff_dense or cfg.d_ff)
+            self.mlp = L.MLP(gen, cfg.d_model, d_ff, dtype, device)
 
     def forward(self, x: torch.Tensor, rope, cache: Optional[dict]):
-        """→ (x, cache)."""
+        """→ (x, aux loss: a float32 scalar tensor, or None without MoE).
+        A cache is updated in place."""
         eps = self.cfg.norm_eps
         h = self.norm_in(x, eps)
-        attn_out, cache = self.attn(h, rope, kind=self.kind, cache=cache)
-        x = x + attn_out
-        x = x + self.mlp(self.norm_mid(x, eps))
-        return x, cache
+        if self.kind == "ssm":
+            return x + self.ssm(h, cache), None
+        if self.kind == "rglru":
+            x = x + self.rglru(h, cache)
+        else:
+            x = x + self.attn(h, rope, kind=self.kind, cache=cache)[0]
+        h = self.norm_mid(x, eps)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(h)
+            return x + out, aux
+        return x + self.mlp(h), None
+
+
+class Frontend(nn.Module):
+    """The VLM's patch projection: (B, P, frontend_dim) stub embeddings →
+    (B, P, d_model)."""
+
+    def __init__(self, gen, cfg: ArchConfig, device):
+        super().__init__()
+        fdim = cfg.encoder.frontend_dim or cfg.d_model
+        self.proj = L._param(L.dense_init(gen, fdim, cfg.d_model,
+                                          L.dtype_of(cfg), device))
 
 
 class LM(nn.Module):
-    """Embedding (tied by default), the layers, the final norm."""
+    """Embedding (tied by default), the VLM frontend where the family has
+    one, the layers, the final norm."""
 
     def __init__(self, cfg: ArchConfig, seed: int = 0, device=None):
         super().__init__()
-        if cfg.family == "vlm":
-            raise _not_ported("the VLM frontend")
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dtype = L.dtype_of(cfg)
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            Block(gen, cfg, kind, device) for kind in layer_kinds(cfg))
+            Block(gen, cfg, kind, i, device)
+            for i, kind in enumerate(layer_kinds(cfg)))
         self.final_norm = L.RMSNorm(cfg.d_model, dtype, device)
         self.embed = L._param(L.embed_init(gen, cfg.vocab, cfg.d_model,
                                            dtype, device))
         if not cfg.tie_embeddings:
             self.lm_head = L._param(L.dense_init(gen, cfg.d_model, cfg.vocab,
                                                  dtype, device))
+        if cfg.family == "vlm":
+            self.frontend = Frontend(gen, cfg, device)
 
     @property
     def device(self) -> torch.device:
@@ -93,10 +121,21 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
     return LM(cfg, seed, device)
 
 
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                     device=None) -> dict:
+    if kind in ATTN_KINDS:
+        return L.init_attn_cache(cfg, batch, max_seq, kind, device=device)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, device)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> list[dict]:
     device = resolve_device(device)
-    return [L.init_attn_cache(cfg, batch, max_seq, kind, device=device)
+    return [init_block_cache(cfg, kind, batch, max_seq, device)
             for kind in layer_kinds(cfg)]
 
 
@@ -114,39 +153,57 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
 
 
 def _run_layers(model: LM, x: torch.Tensor, positions: torch.Tensor,
-                caches: Optional[list]) -> torch.Tensor:
+                caches: Optional[list]):
+    """→ (x, summed aux loss, float32 scalar)."""
     rope = _rope(model.cfg, positions)
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(model.layers):
-        x, _ = block(x, rope, None if caches is None else caches[i])
-    return x
+        x, aux = block(x, rope, None if caches is None else caches[i])
+        if aux is not None:
+            total_aux = total_aux + aux
+    return x, total_aux
 
 
 # ---------------------------------------------------------------------------
 # public forward passes
 # ---------------------------------------------------------------------------
 def forward(model: LM, tokens, patch_embeds=None):
-    """Prefill forward → (hidden (B, S, d), aux_loss 0.0)."""
-    if patch_embeds is not None:
-        raise _not_ported("the VLM frontend")
+    """Prefill forward → (hidden (B, S, d), summed aux loss).
+
+    VLM: ``patch_embeds`` (B, P, frontend_dim) are projected and
+    prepended; the returned hidden covers the full (P + S) sequence."""
     x = _embed(model, tokens)
+    if patch_embeds is not None:
+        px = torch.as_tensor(patch_embeds, device=x.device).to(x.dtype)
+        x = torch.cat([px @ model.frontend.proj, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _run_layers(model, x, positions, None)
-    return model.final_norm(x, model.cfg.norm_eps), 0.0
+    x, aux = _run_layers(model, x, positions, None)
+    return model.final_norm(x, model.cfg.norm_eps), aux
 
 
 def decode_step(model: LM, tokens, caches: list):
     """One decode step. tokens: (B, S) (S = 1 when serving) → (logits
     (B, vocab) of the last position, caches updated in place)."""
     x = _embed(model, tokens)
-    pos0 = caches[0]["pos"]  # all layers advance in lockstep
+    pos0 = cache_pos(caches)
     positions = torch.arange(pos0, pos0 + x.shape[1], device=x.device)[None]
-    x = _run_layers(model, x, positions, caches)
+    x, _ = _run_layers(model, x, positions, caches)
     x = model.final_norm(x, model.cfg.norm_eps)
     return lm_logits(model, x[:, -1:])[:, 0], caches
 
 
+def cache_pos(caches: list) -> int:
+    """The current absolute position: that of the first cache holding one
+    (every attention cache does, and all advance in lockstep); 0 where no
+    cache does (SSM and RG-LRU caches keep none, as in the reference)."""
+    for c in caches:
+        if "pos" in c:
+            return c["pos"]
+    return 0
+
+
 def lm_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding logits in the parameter dtype."""
+    """Logits in the parameter dtype, from the tied embedding or the head."""
     if model.cfg.tie_embeddings:
         return hidden @ model.embed.T
     return hidden @ model.lm_head

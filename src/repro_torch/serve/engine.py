@@ -12,7 +12,11 @@ per-layer rolling caches track one absolute position stream). Each wave:
 One decode step, (slots, 1) tokens, serves prefill and generation. It runs
 eagerly under ``torch.inference_mode()``; the host reads the device once
 per generated step (the argmax) and once after the prompt fill, as the
-reference does. Mixed prompt lengths queue into separate waves.
+reference does. Mixed prompt lengths queue into separate waves. Every
+decoder-only family is served (dense, MoE, SSM, hybrid; a VLM takes token
+prompts only), each wave on a fresh cache of each layer's kind. Enc-dec
+models are served through their bundle (``encode``, then ``decode``), as
+in the JAX package, whose engine is decoder-only too.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, *, slots: int = 4,
                  max_seq: int = 512, params=None, seed: int = 0,
                  device=None):
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is enc-dec: serve it through its "
+                             f"bundle (encode, then decode)")
         self.cfg = cfg
         self.bundle = build_model(cfg, device=device)
         self.device = self.bundle.device

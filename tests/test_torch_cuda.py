@@ -23,7 +23,8 @@ from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
-from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.models import build_model, encdec  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
@@ -916,3 +917,69 @@ def test_serve_engine_on_card_matches_cpu(cuda):
                 cfg.n_layers * eng.stats["steps"]
     assert min(gaps) > 1e-3
     assert results["cuda"] == results["cpu"]
+
+
+FAMILIES = ["olmoe-1b-7b", "deepseek-moe-16b", "mamba2-1.3b",
+            "recurrentgemma-2b", "internvl2-26b", "whisper-small"]
+
+
+def _family_batch(cfg, rng) -> dict:
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 20))}
+    if cfg.family == "vlm":
+        enc = cfg.encoder
+        batch["patches"] = rng.normal(size=(2, enc.n_patches,
+                                            enc.frontend_dim))
+    if cfg.enc_dec:
+        batch["frames"] = rng.normal(size=(2, cfg.encoder.n_frames,
+                                           cfg.d_model))
+    return {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f"
+                                         else np.int64))
+            for k, v in batch.items()}
+
+
+def _prefill_and_decode(bundle, params, batch, steps=3):
+    """The bundle's prefill logits, then ``steps`` decode steps' logits
+    from fresh caches (enc-dec: over the encoded frames)."""
+    dev = bundle.device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    pre = bundle.prefill(params, batch)
+    if bundle.cfg.enc_dec:
+        caches = bundle.init_cache(2, 32, params=params,
+                                   enc_out=encdec.encode(params,
+                                                         batch["frames"]))
+    else:
+        caches = bundle.init_cache(2, 32)
+    tok = batch["tokens"]
+    dec = [bundle.decode(params, tok[:, i:i + 1], caches)[0]
+           for i in range(steps)]
+    return pre, torch.stack(dec, 1)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """Each family's smoke config (float32) on the card, through the flash
+    kernel, against the port's CPU plain path on the same weights: a
+    prefill (VLM with patches, whisper over frames) and three decode
+    steps, within 1e-3; every attention call launches the kernel."""
+    cfg = smoke_config(get_config(arch))
+    card, cpu = build_model(cfg), build_model(cfg, device="cpu")
+    on_card = card.init(5)
+    on_cpu = cpu.init(5)
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in on_card.state_dict().items()})
+    batch = _family_batch(cfg, np.random.default_rng(7))
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = _prefill_and_decode(card, on_card, batch)
+        want = _prefill_and_decode(cpu, on_cpu, batch)
+    torch.cuda.synchronize()
+    if cfg.enc_dec:  # encoder layers a call, self + cross a decoder layer
+        calls = 2 * cfg.encoder.n_layers + cfg.n_layers * (2 + 2 * 3)
+    else:
+        calls = sum(k in transformer.ATTN_KINDS
+                    for k in transformer.layer_kinds(cfg)) * (1 + 3)
+    assert ops.LAUNCHES["flash_attention"] == calls
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-3)

@@ -37,7 +37,9 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.plan.planner",
                 "repro_torch.kernels._build", "repro_torch.device",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.models.convert", "repro_torch.serve.engine",
+                "repro_torch.models.convert", "repro_torch.models.moe",
+                "repro_torch.models.ssm", "repro_torch.models.rglru",
+                "repro_torch.models.encdec", "repro_torch.serve.engine",
                 "repro_torch.serve.scheduler",
                 "repro_torch.serve.query_service",
                 "repro_torch.serve.replica", "repro_torch.serve.router",
