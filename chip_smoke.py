@@ -36,12 +36,10 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    by a few ulps).
 4. ``[io]``, on the main path's 1M index (graph and node order cached):
    ``self_join`` with prefetch I/O (``io_mode="prefetch"``,
-   ``io_batch_reads``), then with the planner (prefetch, ``plan_mode="on"``,
-   ``compute_mode="auto"``): both byte-identical to the main path's sync
-   join (pairs and distances), ``execute``/``io_wait``/``compute`` and the
-   prefetcher's counters logged beside the sync join's, the cost model and
-   the plan (routes, ``pair_cap``, verify batches, compaction overflows,
-   which must be 0). ``query_batch`` of the 1,000 queries with prefetch and
+   ``io_batch_reads``): byte-identical to the main path's sync join (pairs
+   and distances), ``execute``/``io_wait``/``compute`` and the
+   prefetcher's counters logged beside the sync join's (the join with the
+   planner runs in phase 7, at 100k). ``query_batch`` of the 1,000 queries with prefetch and
    the planner in host and device mode: the sync waves' memberships but
    for ε-boundary pairs. A cross-join against a second corpus of 100,000
    near-duplicates (rows of the data + N(0, 1e-3)), built striped over 4
@@ -75,10 +73,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    hit for the first 64 queries, the cold session's bytes). Every verify
    launch of the phase takes the tensor-core route.
 6. ``[dist]`` (launch counts zeroed just before): the superstep join
-   (``core.distributed.DistributedJoin``) on the 1M index in device mode,
-   its pairs and distances byte-identical to the main path's
-   ``self_join``; at 100,000 × 128 (``[parity]``'s data and config) in
-   host and device mode, with a ``JoinCheckpointer`` (every supersteps /
+   (``core.distributed.DistributedJoin``) at 100,000 × 128
+   (``[parity]``'s data and config) in host and device mode (device mode:
+   the single-box join's distance computations, no E = 1 tile), with a ``JoinCheckpointer`` (every supersteps /
    16, fig25's interval), and killed by a ``FaultInjector`` at 60% of its
    supersteps and resumed from the checkpoints: every run the 100k
    single-box join's bytes, the resumed one's raw-row watermark the
@@ -98,7 +95,12 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    the CUDA-core route (``pairwise_l2.cu``): each pair in its difference
    from the tensor-core join lies within 1e-2 of ε² in float64. A resumable build killed after its assign
    scan, then resumed: no rescan, and the uninterrupted build's bucket
-   files and join bytes.
+   files and join bytes. The join with the planner (prefetch,
+   ``plan_mode="on"``, ``compute_mode="auto"``; at 100k to fit the run's
+   time limit, PERF.md §4): the sync join's
+   bytes, the cost model and the plan logged (routes, ``pair_cap``,
+   verify batches), no compaction overflow, every verify launch on the
+   tensor-core route.
 8. ``[lm]``: LM serving at qwen3-0.6b's full width (28 layers, bf16
    weights from a seeded generator on the card): ``ServeEngine(slots=4,
    max_seq=512)`` serves 8 random prompts (4 of 64 tokens, 4 of 128;
@@ -132,12 +134,37 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    differ by more than ``ROUTER_TOL``. The families' new attention shapes
    are held against the plain version and timed beside it, SDPA and the
    bound.
+9. ``[train]``: training at qwen3-0.6b's full width and depth (28 layers,
+   seeded bf16 weights made on the card): 10 steps of
+   ``repro_torch.train.train`` on ``TokenPipeline`` batches of
+   (4, 2048), AdamW (lr 3e-4, warmup 1, total 10), remat on; every loss
+   finite and the last below the first; warm step ms, tokens/s and peak
+   memory logged. Counts zeroed just before, read just after: every
+   forward flash call on the tensor-core route, 28 × 2 a step (remat
+   recomputes each once), and 28 backward calls a step
+   (``csrc/flash_backward.cu``). float32 at full width, 2 layers,
+   (2, 64): the loss, every gradient and the parameters after one AdamW
+   step on the card against the port's CPU path on the same weights
+   (loss 1e-5 relative, gradients ‖Δ‖ ≤ 1e-4 ‖g‖). bf16, 2 layers,
+   (2, 256): 6 steps checkpointed every 2 (async), the same run killed
+   from ``on_step`` at step 4 and resumed, its losses the uninterrupted
+   run's bit for bit; save seconds logged; 2 steps with the int8
+   compressor (finite loss, nonzero error). One bf16 step each of
+   olmoe-1b-7b (2 layers), recurrentgemma-2b (3), whisper-small (2 + 2,
+   1,500 stub frames) and mamba2-1.3b (2) at full width: loss and
+   gradients finite, every parameter moved but an untied ``lm_head``,
+   flash forward and backward calls attention layers × calls. Every
+   backward shape of these paths (tallied by shape while they run; qwen3's
+   in float32 too) is held against ``ref.gqa_attention_bwd`` and timed
+   beside the plain version, SDPA's backward and the bound; training's
+   forward shapes that no ``[lm]`` row covers get forward rows.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
 before printing any result. The sizes are fixed (``N_MAIN`` …); the only
 option, ``--profile``, adds a traced repeat of the device-mode join,
-profiled point queries one at a time and traced LM decode steps.
+profiled point queries one at a time, traced LM decode steps and two
+traced training steps.
 """
 from __future__ import annotations
 
@@ -161,6 +188,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import list_checkpoints  # noqa: E402
 from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
                                   HostVerifyEngine)
 from repro_torch.configs import get_config  # noqa: E402
@@ -178,6 +206,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build_model, encdec  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -189,6 +218,10 @@ from repro_torch.serve import (DOWN, HEALTHY,  # noqa: E402
                                ServeEngine, VectorQueryService,
                                order_result)
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
+from repro_torch.train import (AdamW, AdamWConfig, TrainConfig,  # noqa: E402
+                               make_int8_compressor, train)
+from repro_torch.train import train_loop as train_loop_mod  # noqa: E402
+from repro_torch.train.optimizer import global_norm  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
 PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
@@ -258,6 +291,35 @@ FLASH_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_backward.cu"
+# [train]: qwen3-0.6b at full width and depth, 10 AdamW steps on
+# TokenPipeline batches, remat on
+TRAIN_SHAPE, TRAIN_STEPS = (4, 2048), 10
+TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+TRAIN_CPU = (2, (2, 64))      # float32 card vs CPU: layers, (B, S)
+TRAIN_RESUME = (2, (2, 256))  # kill/resume, bf16: layers, (B, S)
+TRAIN_RESUME_STEPS, TRAIN_KILL_AT, TRAIN_CKPT_EVERY = 6, 4, 2
+# one bf16 step each at full width: arch → (layers, (B, S)); whisper's S
+# is its decoder's tokens over its 1,500 stub frames
+TRAIN_FAMILIES = {"olmoe-1b-7b": (2, (1, 512)),
+                  "recurrentgemma-2b": (3, (1, 512)),
+                  "whisper-small": (2, (1, 64)),
+                  "mamba2-1.3b": (2, (1, 512))}
+# the families' step takes lr 1e-2: Adam's first step moves an element by
+# about lr, and at 3e-4 a bf16 norm scale of 1.0 (ulp 2^-7) would not move
+TRAIN_FAMILY_LR = 1e-2
+# backward kernel vs its plain version, three limits a gradient, as
+# tests/test_torch_cuda.py's: max |Δ| ≤ tol · max |plain| (bf16: one
+# rounding of each output, in either, plus float32 sums in another order;
+# float32: the sums' order); element by element |Δ| ≤ atol · max |plain| +
+# rtol · |plain| (a bf16 output one ulp, ≤ 2^-7 relative, from the plain
+# one: a small element, a late key's dK or dV, is held to its own size;
+# the worst element read 0.53 of its limit on an H100 80GB HBM3);
+# ‖Δ‖ ≤ norm · ‖plain‖ (read there: bf16 ≤ 7.3e-5, float32 ≤ 1.3e-6)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+BWD_ELEM_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 1e-4)}
+BWD_NORM_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_RTOL = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -1152,11 +1214,11 @@ def planned_join(index, ref, tag: str) -> dict:
 
 
 def phase_io(main: dict, workdir: str) -> dict:
-    """Prefetch I/O and the planner on the 1M index that the main path
-    built (graph and node order cached), the prefetched and planned query
-    waves, a cross-join against a striped near-duplicate corpus, the cost
-    model's coefficients, and the IVF assign's time. Each driven path has
-    its launch counts zeroed just before and read just after."""
+    """Prefetch I/O on the 1M index that the main path built (graph and
+    node order cached), the prefetched and planned query waves, a
+    cross-join against a striped near-duplicate corpus, the cost model's
+    coefficients, and the IVF assign's time. Each driven path has its
+    launch counts zeroed just before and read just after."""
     s = main["shapes"]
     index, x, eps, Q = s["index"], s["x"], s["eps"], s["Q"]
     res = main["res"]
@@ -1179,12 +1241,10 @@ def phase_io(main: dict, workdir: str) -> dict:
     log("[io] sync     " + json.dumps(out["sync"]))
     log("[io] prefetch " + json.dumps(out["prefetch"]))
 
-    # 2. planned join, compute_mode="auto": byte-identical as well
-    t0 = time.perf_counter()
-    launches_plan = planned_join(index, res, "io")
-    t["planned_join"] = time.perf_counter() - t0
+    # (the planned join, compute_mode="auto", runs in [parity] at 100k:
+    # PERF.md §4's cuts)
 
-    # 3. prefetched, planned query waves: the sync waves' memberships
+    # 2. prefetched, planned query waves: the sync waves' memberships
     ops.reset_launches()
     qt = {}
     q_out = {}
@@ -1208,7 +1268,7 @@ def phase_io(main: dict, workdir: str) -> dict:
                           q_out["device"])
     out["query_s"] = qt
 
-    # 4. cross-join against a striped near-duplicate corpus
+    # 3. cross-join against a striped near-duplicate corpus
     n_y = N_CROSS
     rng = np.random.default_rng(17)
     y = (x[rng.choice(x.shape[0], size=n_y, replace=False)]
@@ -1266,7 +1326,7 @@ def phase_io(main: dict, workdir: str) -> dict:
     check(rec >= 0.88, f"cross-join recall {rec} < 0.88")
     other.close()
 
-    # 5. the planner's CUDA coefficients, and the IVF assign's time
+    # 4. the planner's CUDA coefficients, and the IVF assign's time
     t0 = time.perf_counter()
     out["cost_model"] = calibrate_cost_model(index, eps, s["E"])
     t["calibrate"] = time.perf_counter() - t0
@@ -1274,8 +1334,8 @@ def phase_io(main: dict, workdir: str) -> dict:
     out["ivf"] = ivf_assign_timing(s["store"])
     t["ivf"] = time.perf_counter() - t0
     log(f"[io] phase seconds {json.dumps({k: round(v, 3) for k, v in t.items()})}")
-    out["launches"] = dict(prefetch=launches_pre, planned=launches_plan,
-                           queries=launches_q, cross=launches_x)
+    out["launches"] = dict(prefetch=launches_pre, queries=launches_q,
+                           cross=launches_x)
     return out
 
 
@@ -1697,57 +1757,13 @@ def dist_line(info: dict) -> dict:
         if k in info}
 
 
-def dist_1m(main: dict, out: dict, t: dict) -> None:
-    """The superstep join on the 1M index in device mode against the main
-    path's ``self_join``: the same pairs, and distances byte for byte."""
-    s = main["shapes"]
-    index, ref = s["index"], main["res"]
-    cfg = index._resolve({})
-    check(cfg.compute_mode == "device", "[main]'s join is not device mode")
-    graph, _, _ = index._graph_for(cfg)
-    before = ops.launches_snapshot()
-    tp = {}
-    restore = timed_plan(tp)
-    try:
-        res, info, wall = superstep_run(index, cfg, graph)
-    finally:
-        restore()
-    launches = {k: v - before[k] for k, v in ops.launches_snapshot().items()}
-    n = verify_launches_all_tc(launches, "1M superstep join")
-    check(launches["pairwise_l2_threshold"] == 0,
-          "the 1M superstep join launched the E = 1 tile")
-    check(np.array_equal(res.pairs, ref.pairs),
-          "1M superstep join: pairs differ from [main]'s self_join")
-    differ = int((res.distances != ref.distances).sum())
-    if differ:
-        # a difference is a fault to find: its count is logged, and the
-        # distances are held to the d² tolerance meanwhile
-        check(np.allclose(res.distances, ref.distances, rtol=D2_RTOL,
-                          atol=D2_ATOL),
-              f"1M superstep join: {differ} distances not even allclose")
-    check(info["distance_computations"] == ref.num_distance_computations,
-          "1M superstep join: distance computations differ")
-    t["superstep_1m"] = wall
-    out["superstep_1m"] = dict(dist_line(info), wall_s=wall,
-                               plan_s=tp["plan"], launches=n,
-                               dists_differ=differ,
-                               h2d_bytes=info["h2d_bytes"])
-    log(f"[dist] 1M superstep join (device mode) {wall:.3f} s (plan "
-        f"{tp['plan']:.3f} s: node order + windows; walk and verify "
-        f"{wall - tp['plan']:.3f} s): {res.pairs.shape[0]} pairs "
-        f"byte-identical "
-        f"to [main]'s self_join, distances "
-        + ("byte-identical" if not differ else
-           f"{differ} differ (allclose)")
-        + f"; {n} verify launches, all tc; " + json.dumps(dist_line(info))
-        + f"; single-box join: bucket loads {ref.bucket_loads}, execute "
-        f"{ref.timings['execute']:.3f} s")
-
-
 def dist_100k(workdir: str, out: dict, t: dict) -> None:
     """At [parity]'s 100k data and config: the superstep join in host and
     device mode, checkpointed, and killed and resumed, each the single-box
-    join's bytes."""
+    join's bytes; the device-mode run also the single-box join's distance
+    computations, every verify launch on the tensor-core route and no
+    E = 1 tile. (The device-mode checks once also ran on the 1M index;
+    that run was cut to keep the script inside its time budget.)"""
     n = N_PARITY
     x = clustered_vectors(n, DIM, seed=2)
     eps = epsilon_for_avg_neighbors(x, 20)
@@ -1762,10 +1778,20 @@ def dist_100k(workdir: str, out: dict, t: dict) -> None:
         graph, _, _ = index._graph_for(dcfg)
         runs = {}
         for name, c in (("host", hcfg), ("device", dcfg)):
+            before = ops.launches_snapshot()
             res, info, wall = superstep_run(index, c, graph)
+            launches = {k: v - before[k]
+                        for k, v in ops.launches_snapshot().items()}
             check_identical(res, single, f"100k superstep join ({name})")
             runs[name] = dict(dist_line(info), wall_s=wall)
             t[f"superstep_100k_{name}"] = wall
+            if name == "device":
+                verify_launches_all_tc(launches, "100k superstep join")
+                check(launches["pairwise_l2_threshold"] == 0,
+                      "the 100k superstep join launched the E = 1 tile")
+                check(info["distance_computations"]
+                      == single.num_distance_computations,
+                      "100k superstep join: distance computations differ")
         steps = runs["device"]["supersteps"]
         every = max(1, steps // 16)
         ck = JoinCheckpointer(os.path.join(workdir, "ck_full"), every=every)
@@ -1869,14 +1895,13 @@ def dist_dedup(workdir: str, out: dict, t: dict) -> None:
           f"dedup dropped {rep.num_dropped} < 0.88 x {N_DEDUP}")
 
 
-def phase_dist(main: dict, workdir: str) -> dict:
-    """The superstep join on the 1M index and at 100k (checkpoints,
-    kill/resume), then semantic dedup. Launch counts are zeroed just
-    before the phase and read just after."""
+def phase_dist(workdir: str) -> dict:
+    """The superstep join at 100k (checkpoints, kill/resume), then
+    semantic dedup. Launch counts are zeroed just before the phase and
+    read just after."""
     out, t = {}, {}
     ops.reset_launches()
     t_phase = time.perf_counter()
-    dist_1m(main, out, t)
     dist_100k(workdir, out, t)
     dist_dedup(workdir, out, t)
     launches = ops.launches_snapshot()
@@ -2033,6 +2058,9 @@ def phase_parity(workdir: str) -> dict:
                             workdir)
         simt = simt_difference(index, dev, x, eps, "parity")
         resumed_build(store, cfg, workdir, index.workdir, dev)
+        t0 = time.perf_counter()
+        planned = planned_join(index, dev, "parity")
+        log(f"[parity] planned join phase {time.perf_counter() - t0:.3f} s")
     check_join_output(x, eps, host)
     check(np.array_equal(host.pairs, dev.pairs), "host/device pairs differ")
     check(np.array_equal(host.distances, dev.distances),
@@ -2063,7 +2091,7 @@ def phase_parity(workdir: str) -> dict:
             "execute", "io_wait", "compute"))
         for k, r in [(("plain", "sync", "host"), host),
                      (("plain", "sync", "device"), dev), *runs.items()]))
-    return dict(simt=simt, trace=trace)
+    return dict(simt=simt, trace=trace, planned=planned)
 
 
 # ---------------------------------------------------------------------------
@@ -2127,7 +2155,6 @@ def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
                                    torch.arange(t, device="cuda")),
                         causal=kw["causal"], window=kw.get("window", 0),
                         q_offset=kw.get("q_offset", 0))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in dtypes:
         q, k, v = attn_inputs(cfg, b, sq, t, dtype, seed=sq + t)
         routes[dtype] = flash.launch_plan(
@@ -2137,19 +2164,7 @@ def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
         ms[dtype] = graph_ms(lambda: ops.gqa_attention(q, k, v, **kw))
         plain[dtype] = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw),
                                 reps=5)
-        # the library call computes the same function: no mask for full
-        # attention, is_causal (top-left aligned) for S == T from position
-        # 0, a boolean key mask otherwise (decode, windows)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        plain_keys = "kv_positions" not in kw and not kw.get("window")
-        if plain_keys and not kw["causal"]:
-            lib_fn = lambda: sdpa(qt, kt, vt, enable_gqa=True)  # noqa: E731
-        elif plain_keys and sq == t:
-            lib_fn = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                                  enable_gqa=True)
-        else:
-            lib_fn = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
-                                  enable_gqa=True)
+        lib_fn = lambda: sdpa_call(q, k, v, kw, mask)  # noqa: E731
         lib[dtype] = graph_ms(lib_fn)
     want = ref.gqa_attention(q, k, v, **kw).float()
     lib_err = (lib_fn().transpose(1, 2).float() - want).abs().max().item()
@@ -2737,6 +2752,624 @@ def phase_lm_families() -> list[dict]:
     return family_rows(fams)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: [train] — training on the card
+# ---------------------------------------------------------------------------
+class TrainKill(Exception):
+    """Raised from ``on_step`` to kill a training run at a chosen step."""
+
+
+class RecordingAdamW(AdamW):
+    """AdamW that keeps the gradients ``make_train_step`` hands it."""
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return super().update(grads, state, params)
+
+
+def bwd_key(q, k, kw) -> tuple:
+    """What tells one backward call's shape from another's on the paths:
+    (dtype, B, Sq, T, H, Hkv, D, causal, windowed)."""
+    b, sq, h, d = q.shape
+    return (str(q.dtype).removeprefix("torch."), b, sq, k.shape[1], h,
+            k.shape[2], d, bool(kw["causal"]), kw.get("window", 0) > 0)
+
+
+@contextlib.contextmanager
+def tallying_flash_bwd(tally: collections.Counter):
+    """Tally every backward call (the autograd Function's backward calls
+    ``ops.gqa_attention_bwd`` by its module name) by ``bwd_key``."""
+    inner = ops.gqa_attention_bwd
+
+    def bwd(q, k, v, out, dout, **kw):
+        tally[bwd_key(q, k, kw)] += 1
+        return inner(q, k, v, out, dout, **kw)
+    ops.gqa_attention_bwd = bwd
+    try:
+        yield
+    finally:
+        ops.gqa_attention_bwd = inner
+
+
+def train_batch(cfg, b: int, s: int, g: torch.Generator) -> dict:
+    tok = torch.randint(0, cfg.vocab, (b, s), device="cuda", generator=g)
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder.n_frames, cfg.d_model), device="cuda",
+            generator=g).to(getattr(torch, cfg.param_dtype))
+    return batch
+
+
+def train_main(fwd_tally, bwd_tally) -> dict:
+    """qwen3-0.6b at full width and depth (28 layers, seeded bf16 weights
+    made on the card by ``train``): TRAIN_STEPS steps of
+    ``repro_torch.train.train`` on TokenPipeline batches of TRAIN_SHAPE,
+    AdamW (TRAIN_OPT), remat on. Counts zeroed just before, read just
+    after: every forward flash call on the tensor-core route, two a layer
+    a step (the forward and its recomputation), one backward call a layer
+    a step."""
+    cfg = get_config(LM_ARCH)
+    b, s = TRAIN_SHAPE
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1,
+                       checkpoint_every=TRAIN_STEPS, global_batch=b,
+                       seq_len=s, optimizer=AdamWConfig(**TRAIN_OPT))
+    stamps = []
+
+    def on_step(step, metrics):
+        stamps.append((time.perf_counter(), metrics))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: counts zeroed just before, read just after -------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with tallying_flash(fwd_tally), tallying_flash_bwd(bwd_tally):
+        out = train(cfg, tcfg, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["loss_history"]
+    n = cfg.n_layers
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"[train] losses {losses}")
+    check(losses[-1] < losses[0], f"[train] loss did not fall: {losses}")
+    check(launches["flash_attention"] == launches["flash_prefill_tc"]
+          == 2 * n * TRAIN_STEPS and launches["flash_simt"] == 0
+          and launches["flash_decode_split"] == 0,
+          f"[train] forward flash calls: {2 * n * TRAIN_STEPS} tensor-core "
+          f"calls expected, got {launches}")
+    check(launches["flash_attention_bwd"] == n * TRAIN_STEPS,
+          f"[train] backward calls {launches['flash_attention_bwd']} != "
+          f"{n} x {TRAIN_STEPS}")
+    check(all(launches[k] == 0 for k in JOIN_KERNELS), "join kernels ran")
+    ends = np.array([t for t, _ in stamps])
+    steps_ms = np.diff(ends) * 1e3          # step i ≥ 1: end to end
+    warm_ms = float(np.median(steps_ms[1:]))
+    tokens_s = b * s / (warm_ms / 1e3)
+    log(f"[train] {LM_ARCH}: {n} layers at full width, bf16, {TRAIN_STEPS} "
+        f"steps of {TRAIN_SHAPE} tokens, remat on, AdamW {TRAIN_OPT}: "
+        f"losses {losses!r}")
+    log(f"[train] first step (model made on the card, first batch, "
+        f"first launches) {(ends[0] - t0) * 1e3:.1f} ms; warm step median "
+        f"{warm_ms:.1f} ms (steps {np.round(steps_ms, 1).tolist()} ms), "
+        f"{tokens_s:.1f} tokens/s; StepTimer mean "
+        f"{out['mean_step_ms']:.1f} ms; peak memory allocated "
+        f"{peak / 2 ** 30:.2f} GiB; run {wall:.2f} s")
+    log(f"[train] launches: forward flash {launches['flash_attention']} "
+        f"(tc {launches['flash_prefill_tc']}), backward "
+        f"{launches['flash_attention_bwd']}; by backward shape "
+        f"{sorted(bwd_tally.items())}")
+    return dict(losses=losses, warm_ms=warm_ms, tokens_s=tokens_s,
+                peak=peak, launches=launches)
+
+
+def step_with_grads(bundle, params, batch, lr: float, grad_transform=None,
+                    state=None):
+    """One ``make_train_step`` → (params, state, metrics, the gradients
+    the optimizer was handed)."""
+    opt = RecordingAdamW(AdamWConfig(**dict(TRAIN_OPT, learning_rate=lr)),
+                         grad_transform=grad_transform)
+    if state is None:
+        state = opt.init(params)
+    params, state, metrics = make_train_step(bundle, opt)(params, state,
+                                                          batch)
+    return params, state, metrics, opt.grads
+
+
+def train_vs_cpu() -> dict:
+    """float32, qwen3 at full width cut to TRAIN_CPU's layers: the loss,
+    every gradient and every parameter after one AdamW step on the card
+    (the kernels) against the port's CPU plain path from the same weights
+    and batch. Loss within TRAIN_CPU_LOSS_RTOL; each gradient ‖Δ‖ ≤
+    TRAIN_CPU_GRAD_RTOL ‖g_cpu‖; parameters |Δ| ≤ 1e-3·lr except where the
+    CPU's gradient is below 1e-4 of its tensor's largest or within 100·eps
+    of Adam's eps after the clip (counted, each within 2·lr: see
+    tests/test_torch_train_families.py)."""
+    layers, (b, s) = TRAIN_CPU
+    cfg = family_config(LM_ARCH, layers, param_dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    batch = train_batch(cfg, b, s, g)
+    card = build_model(cfg).init(4)
+    cpu = build_model(cfg, device="cpu").init(4)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    lr = TRAIN_OPT["learning_rate"]
+    res = {}
+    for device, params in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=device)
+        dev_batch = {k: v.to(device) for k, v in batch.items()}
+        params, _, met, grads = step_with_grads(bundle, params, dev_batch,
+                                                lr)
+        # both sides compared on the card (the CPU's tensors copied there)
+        res[device] = (float(met["loss"]), float(met["grad_norm"]),
+                       {n: x.detach().to("cuda") for n, x in grads.items()
+                        if x is not None},
+                       {n: p.detach().to("cuda")
+                        for n, p in params.named_parameters()})
+        log(f"[train] float32 step on {device}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    (lc, nc, gc, pc), (lh, nh, gh, ph) = res["cuda"], res["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    check(loss_rel <= TRAIN_CPU_LOSS_RTOL, f"[train] card vs CPU loss "
+          f"{lc!r} vs {lh!r}")
+    check(sorted(gc) == sorted(gh), "[train] gradient names differ")
+    worst = 0.0
+    for name, want in gh.items():
+        got = gc[name]
+        check(torch.isfinite(got).all().item(), f"[train] {name} grad")
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        check(rel <= TRAIN_CPU_GRAD_RTOL, f"[train] card vs CPU gradient "
+              f"{name}: relative error {rel}")
+        worst = max(worst, rel)
+    scale = min(1.0, 1.0 / nh)
+    noisy = total = 0
+    step_err = 0.0
+    for name, want in ph.items():
+        diff = (pc[name] - want).abs()
+        ga = gh[name].abs() if name in gh else torch.zeros_like(want)
+        big = (ga >= 1e-4 * ga.max()) & (ga * scale >= 100 * 1e-8)
+        check(diff.max().item() <= 2.01 * lr, f"[train] {name} after the "
+              f"step: {diff.max().item()} > 2 lr")
+        if big.any():
+            step_err = max(step_err, diff[big].max().item())
+        check(not big.any() or diff[big].max().item() <= 1e-3 * lr,
+              f"[train] {name} after the step off by "
+              f"{diff[big].max().item()}")
+        noisy += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    check(noisy <= total // 1000, f"[train] {noisy} of {total} elements "
+          f"past 1e-3 lr after the step")
+    log(f"[train] float32 card vs CPU, {layers} layers at full width, "
+        f"({b}, {s}): loss {lc!r} vs {lh!r} (rel {loss_rel:.3g}, tol "
+        f"{TRAIN_CPU_LOSS_RTOL}); worst gradient ‖Δ‖/‖g‖ {worst:.3g} (tol "
+        f"{TRAIN_CPU_GRAD_RTOL}) over {len(gh)} tensors; after one AdamW "
+        f"step max |Δ| {step_err:.3g} where the gradient is above the "
+        f"floor (tol {1e-3 * lr:.3g}), {noisy} of {total} elements below "
+        f"it past 1e-3 lr (each within 2 lr)")
+    return dict(loss_rel=loss_rel, grad_rel=worst, noisy=noisy)
+
+
+@contextlib.contextmanager
+def timing_checkpoints(saves: list, writes: list):
+    """Record the seconds of each ``CheckpointManager.save`` (the host
+    snapshot on the training thread) and of each write (on its thread)."""
+    cls = train_loop_mod.CheckpointManager
+    save, write = cls.save, cls._write
+
+    def timed_save(self, *a, **k):
+        t0 = time.perf_counter()
+        save(self, *a, **k)
+        saves.append(time.perf_counter() - t0)
+
+    def timed_write(self, *a, **k):
+        t0 = time.perf_counter()
+        write(self, *a, **k)
+        writes.append(time.perf_counter() - t0)
+    cls.save, cls._write = timed_save, timed_write
+    try:
+        yield
+    finally:
+        cls.save, cls._write = save, write
+
+
+def train_resume(workdir: str) -> dict:
+    """qwen3 at full width cut to TRAIN_RESUME's layers, bf16: an
+    uninterrupted run of TRAIN_RESUME_STEPS steps with a checkpoint every
+    TRAIN_CKPT_EVERY (async), then the same run killed by an exception from
+    ``on_step`` at TRAIN_KILL_AT and resumed by calling ``train`` again:
+    the resumed losses must be the uninterrupted run's, bit for bit. Then
+    two steps with the int8 compressor: finite loss, nonzero error."""
+    layers, (b, s) = TRAIN_RESUME
+    cfg = family_config(LM_ARCH, layers)
+
+    def tcfg(name):
+        return TrainConfig(steps=TRAIN_RESUME_STEPS, log_every=100,
+                           checkpoint_every=TRAIN_CKPT_EVERY,
+                           checkpoint_dir=os.path.join(workdir, name),
+                           global_batch=b, seq_len=s,
+                           optimizer=AdamWConfig(**TRAIN_OPT))
+
+    def kill(step, metrics):
+        if step == TRAIN_KILL_AT:
+            raise TrainKill(step)
+
+    saves, writes = [], []
+    with timing_checkpoints(saves, writes):
+        whole = train(cfg, tcfg("whole"))
+        killed = False
+        try:
+            train(cfg, tcfg("killed"), on_step=kill)
+        except TrainKill:
+            killed = True
+        check(killed, "[train] the killed run was not killed")
+        restart = list_checkpoints(
+            os.path.join(workdir, "killed"))[-1][0]
+        resumed = train(cfg, tcfg("killed"))
+    want = whole["loss_history"][restart:]
+    got = resumed["loss_history"]
+    check(len(got) == len(want) == TRAIN_RESUME_STEPS - restart,
+          f"[train] resumed {len(got)} steps from step {restart}")
+    check(np.isfinite(got).all(), "[train] resumed losses not finite")
+    diff = max(abs(a - w) / abs(w) for a, w in zip(got, want))
+    bitwise = got == want
+    check(bitwise or diff <= 1e-5, f"[train] resumed losses {got!r} vs "
+          f"uninterrupted {want!r}")
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(os.path.join(workdir, "whole"))
+               for f in fs) / max(1, len(list_checkpoints(
+                   os.path.join(workdir, "whole"))))
+    log(f"[train] kill/resume, {layers} layers at full width, bf16, "
+        f"({b}, {s}), {TRAIN_RESUME_STEPS} steps, checkpoint every "
+        f"{TRAIN_CKPT_EVERY} (async): killed at step {TRAIN_KILL_AT}, "
+        f"resumed from step {restart}: losses "
+        + ("bitwise equal" if bitwise else
+           f"NOT bitwise equal (max rel diff {diff!r}; the backward's "
+           f"scatter of the embedding gradient, index_put_ with "
+           f"accumulate, is the one op here whose order may vary)")
+        + f" {got!r}; checkpoint {size / 2 ** 20:.1f} MiB, host snapshot "
+        f"on the training thread {np.round(saves, 3).tolist()} s, writes "
+        f"{np.round(writes, 3).tolist()} s")
+    # int8 gradient compression with error feedback, two steps
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    state, losses = None, []
+    for _ in range(2):
+        params, state, met, _ = step_with_grads(
+            bundle, params, train_batch(cfg, b, s, g),
+            TRAIN_OPT["learning_rate"], make_int8_compressor(cfg), state)
+        losses.append(float(met["loss"]))
+    err = float(global_norm(state["error"].values()))
+    check(np.isfinite(losses).all() and np.isfinite(err) and err > 0,
+          f"[train] int8 compression: losses {losses}, error norm {err}")
+    log(f"[train] int8 gradient compression, 2 steps: losses {losses!r}, "
+        f"error-feedback norm {err!r}")
+    return dict(bitwise=bitwise, diff=diff, saves=saves, writes=writes)
+
+
+def train_family(arch: str, layers: int, shape: tuple, fwd_tally,
+                 bwd_tally) -> dict:
+    """One bf16 ``make_train_step`` of ``arch`` at its published widths cut
+    to ``layers`` (counts zeroed just before, read just after): the loss
+    and every gradient finite, every parameter moved but an untied
+    ``lm_head`` (the reference's loss reads the embedding table), the flash
+    forward and backward calls attention layers x calls (remat recomputes
+    each forward once; enc-dec: no remat, self and cross a decoder
+    layer)."""
+    cfg = family_config(arch, layers)
+    b, s = shape
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    batch = train_batch(cfg, b, s,
+                        torch.Generator(device="cuda").manual_seed(41))
+    torch.cuda.synchronize()
+    # --- the family's path: counts zeroed just before, read after --------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with tallying_flash(fwd_tally), tallying_flash_bwd(bwd_tally):
+        params, _, met, grads = step_with_grads(bundle, params, batch,
+                                                TRAIN_FAMILY_LR)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    # -----------------------------------------------------------------------
+    untied = None if cfg.tie_embeddings or cfg.enc_dec else "lm_head"
+    check(np.isfinite(float(met["loss"])), f"[train] {arch} loss")
+    for name, grad in grads.items():
+        if grad is None:
+            check(name == untied, f"[train] {arch}: {name} has no gradient")
+            continue
+        check(torch.isfinite(grad).all().item(), f"[train] {arch}: {name} "
+              f"gradient not finite")
+    still = [n for n, p in params.named_parameters()
+             if torch.equal(p.detach(), before[n]) and n != untied]
+    check(not still, f"[train] {arch}: parameters that did not move {still}")
+    if cfg.enc_dec:
+        fwd = cfg.encoder.n_layers + 2 * cfg.n_layers
+        bwd = fwd
+    else:
+        bwd = attention_layers(cfg)
+        fwd = 2 * bwd
+    check(launches["flash_attention"] == fwd
+          and launches["flash_attention_bwd"] == bwd,
+          f"[train] {arch}: {fwd} forward and {bwd} backward flash calls "
+          f"expected, got {launches}")
+    log(f"[train] {arch}: {cfg.n_layers} layers"
+        + (f" + {cfg.encoder.n_layers} encoder" if cfg.enc_dec else "")
+        + f" at full width, bf16, ({b}, {s}) tokens: one step "
+        f"{step_s * 1e3:.1f} ms (first, launches included), loss "
+        f"{float(met['loss'])!r}, grad norm {float(met['grad_norm'])!r}; "
+        f"flash forward {launches['flash_attention']}, backward "
+        f"{launches['flash_attention_bwd']}; every gradient finite, every "
+        f"parameter moved" + (f" but {untied}" if untied else ""))
+    return dict(cfg=cfg, loss=float(met["loss"]), step_s=step_s)
+
+
+def sdpa_call(q, k, v, kw, mask):
+    """The library call that computes the same function, on the
+    (B, H, S, D) views of q, k, v: no mask for full attention, is_causal
+    (top-left aligned) for S == T from position 0, the boolean key mask
+    otherwise (decode, windows)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain_keys = "kv_positions" not in kw and not kw.get("window")
+    if plain_keys and not kw["causal"]:
+        return sdpa(qt, kt, vt, enable_gqa=True)
+    if plain_keys and q.shape[1] == k.shape[1]:
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
+                      dtypes=(torch.bfloat16,)) -> dict:
+    """One backward shape of the paths: the kernel against
+    ``ref.gqa_attention_bwd`` on the same inputs (BWD_TOL), in each of
+    ``dtypes``; timed (CUDA graphs) beside the plain version and SDPA's
+    backward (its forward + backward less its forward), and the bound: five
+    products (S, dP, dV, dK, dQ) at the bf16 tensor-core rate for bf16
+    (the CUDA cores' for float32), against each input read once (q, k, v,
+    O, dO) and each gradient written once."""
+    t_row = time.perf_counter()
+    _, b, sq, t, h, hkv, d, causal, _ = key
+    kw = dict(causal=causal, window=window)
+    mask = ref.gqa_mask(sq, torch.arange(t, device="cuda"), causal=causal,
+                        window=window, q_offset=0)
+    cfg = types.SimpleNamespace(n_heads=h, n_kv_heads=hkv, head_dim=d)
+    stats = {}
+    for dtype in dtypes:
+        q, k, v = attn_inputs(cfg, b, sq, t, dtype, seed=sq + 3 * t)
+        dout = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(sq + t)).to(dtype)
+        out = ops.gqa_attention(q, k, v, **kw)
+        got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+        want = ref.gqa_attention_bwd(q, k, v, out, dout, **kw)
+        err = elem = norm = 0.0
+        atol, rtol = BWD_ELEM_TOL[dtype]
+        for gname, x, w in zip("qkv", got, want):
+            check(torch.isfinite(x).all().item(), f"flash backward {name} "
+                  f"d{gname} not finite")
+            x, w = x.float(), w.float()
+            diff = (x - w).abs()
+            e, top = diff.max().item(), w.abs().max().item()
+            check(e <= BWD_TOL[dtype] * top, f"flash backward {name} "
+                  f"{dtype} d{gname}: max |Δ| {e} > {BWD_TOL[dtype]} x "
+                  f"{top}")
+            # the worst element's |Δ| as a share of its own limit
+            el = (diff / (atol * top + rtol * w.abs()).clamp_min(1e-30)
+                  ).max().item()
+            check(el <= 1.0, f"flash backward {name} {dtype} d{gname}: an "
+                  f"element past {atol} max|plain| + {rtol} |plain| "
+                  f"({el:.3g} of its limit)")
+            nr = diff.norm().item() / max(w.norm().item(), 1e-30)
+            check(nr <= BWD_NORM_TOL[dtype], f"flash backward {name} "
+                  f"{dtype} d{gname}: ‖Δ‖/‖plain‖ {nr} > "
+                  f"{BWD_NORM_TOL[dtype]}")
+            err, elem, norm = max(err, e), max(elem, el), max(norm, nr)
+            del x, w, diff
+        del got, want
+        big = b * sq * t > 2 ** 24
+        reps = dict(reps=5, replays=2) if big else {}
+        ms = graph_ms(lambda: ops.gqa_attention_bwd(q, k, v, out, dout,
+                                                    **kw), **reps)
+        plain = graph_ms(lambda: ref.gqa_attention_bwd(q, k, v, out, dout,
+                                                       **kw),
+                         reps=2 if big else 5, replays=2)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def fwd():
+            return sdpa_call(qg, kg, vg, kw, mask)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), (qg, kg, vg), dt)
+
+        lib_both = graph_ms(fwd_bwd, **reps)
+        lib_fwd = graph_ms(fwd, **reps)
+        lib_grads = fwd_bwd()
+        lib_err = max((x.float() - w.float()).abs().max().item()
+                      for x, w in zip(lib_grads, ref.gqa_attention_bwd(
+                          q, k, v, out, dout, **kw)))
+        stats[dtype] = dict(err=err, elem=elem, norm=norm, ms=ms,
+                            plain=plain,
+                            lib=lib_both - lib_fwd, lib_both=lib_both,
+                            lib_fwd=lib_fwd, lib_err=lib_err)
+        del q, k, v, out, dout, qg, kg, vg, lib_grads
+        torch.cuda.empty_cache()
+    visible = int(mask.sum().item())
+    keys = int(mask.any(0).sum().item())
+    matmul = 2.0 * b * h * d * visible
+    q_elems, kv_elems = b * sq * h * d, b * hkv * d
+    elems = 4 * q_elems + 2 * kv_elems * keys + 2 * kv_elems * t
+    bf = torch.bfloat16
+    bms, by = bound(0.0, 2 * elems, flops_bf16=5 * matmul)
+    st = stats[bf]
+    msg = (f"[train] flash backward {name} ({b}, {sq}, {h}, {d}) x ({b}, "
+           f"{t}, {hkv}, {d}): bf16 max abs err {st['err']!r} (worst "
+           f"element {st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
+           f"{st['norm']:.3g}); kernel "
+           f"{st['ms']:.4f} ms, plain {st['plain']:.4f} ms, sdpa backward "
+           f"{st['lib']:.4f} ms (fwd+bwd {st['lib_both']:.4f}, fwd "
+           f"{st['lib_fwd']:.4f}; grads vs plain max abs "
+           f"{st['lib_err']:.3g}), bound {bms:.4f} ms ({by}), share "
+           f"{bms / st['ms']:.3f}; launches {launches}")
+    t_row = time.perf_counter() - t_row
+    row = dict(
+        name=f"flash_attention backward ({name})", route="cuda",
+        source=FLASH_BWD_SOURCE,
+        replaces="src/repro/kernels/flash_attention.py:77",
+        port_only="backward of flash_attention; the JAX package "
+                  "differentiates its plain attention "
+                  "(src/repro/models/layers.py:134)",
+        launches=launches, max_abs_err=st["err"],
+        elem_share_of_tol=st["elem"], norm_rel_err=st["norm"], ms=st["ms"],
+        plain_ms=st["plain"], bound_ms=bms, bound_by=by,
+        library_ms=st["lib"], library_max_abs_err=st["lib_err"],
+        shape=[b, sq, t, h, hkv, d], dtype="bfloat16", ok=True)
+    f32 = torch.float32
+    if f32 in stats:
+        st = stats[f32]
+        bms32, by32 = bound(5 * matmul, 4 * elems)
+        msg += (f"; f32 max abs err {st['err']!r} (worst element "
+                f"{st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
+                f"{st['norm']:.3g}), kernel {st['ms']:.4f} ms"
+                f", plain {st['plain']:.4f} ms, sdpa backward "
+                f"{st['lib']:.4f} ms, bound {bms32:.4f} ms ({by32}), share "
+                f"{bms32 / st['ms']:.3f}")
+        row.update(max_abs_err_f32=st["err"],
+                   elem_share_of_tol_f32=st["elem"],
+                   norm_rel_err_f32=st["norm"], f32_ms=st["ms"],
+                   f32_plain_ms=st["plain"], f32_bound_ms=bms32,
+                   f32_bound_by=by32, f32_library_ms=st["lib"])
+    log(msg + f"; row {t_row:.1f} s")
+    return row
+
+
+def profile_train_step() -> None:
+    """qwen3-0.6b at full width and depth, TRAIN_SHAPE: the first step's
+    wall time (warm-up included), then two warm steps under torch.profiler:
+    wall time, device busy share and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(LM_ARCH)
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    state = opt.init(params)
+    step = make_train_step(bundle, opt)
+    g = torch.Generator(device="cuda").manual_seed(43)
+    batch = train_batch(cfg, *TRAIN_SHAPE, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)
+    float(met["loss"])
+    first = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            params, state, met = step(params, state, batch)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) / 2
+    rows = [(e.key, e.self_device_time_total / 2e3, e.count // 2)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"[profile-train] first step {first * 1e3:.1f} ms; warm step under "
+        f"the profiler {wall * 1e3:.1f} ms, device kernels {busy:.1f} ms "
+        f"(busy share {busy / (wall * 1e3):.3f})")
+    for key, ms, n in rows[:14]:
+        log(f"[profile-train] {ms:9.3f} ms  {n:5d} x  {key[:90]}")
+
+
+def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
+    """[train]: the qwen3 main path, float32 card vs CPU, kill/resume and
+    int8 compression, one step of each other family; then a backward row
+    for every backward shape the paths launched (qwen3's also in float32)
+    and a forward row for every forward shape no earlier row covers.
+    ``profile``: two traced training steps after the main path."""
+    fwd_tally, bwd_tally = collections.Counter(), collections.Counter()
+    t0 = time.perf_counter()
+    main = train_main(fwd_tally, bwd_tally)
+    log(f"[train] main path {time.perf_counter() - t0:.1f} s")
+    if profile:
+        torch.cuda.empty_cache()
+        profile_train_step()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train_vs_cpu()
+    log(f"[train] card vs CPU {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_resume(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[train] kill/resume and int8 {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    windows = {}
+    fwd_arch = dict.fromkeys(fwd_tally, LM_ARCH)
+    for arch, (layers, shape) in TRAIN_FAMILIES.items():
+        t1 = time.perf_counter()
+        ftally, btally = collections.Counter(), collections.Counter()
+        fam = train_family(arch, layers, shape, ftally, btally)
+        for key in btally:
+            windows[key] = (arch, fam["cfg"].window)
+        for key in ftally:
+            fwd_arch.setdefault(key, arch)
+        fwd_tally.update(ftally)
+        bwd_tally.update(btally)
+        torch.cuda.empty_cache()
+        log(f"[train] {arch} {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    qwen = get_config(LM_ARCH)
+    names = {}
+    for key in bwd_tally:
+        arch, window = windows.get(key, (LM_ARCH, qwen.window))
+        _, b, sq, t, h, hkv, d, causal, windowed = key
+        kind = ("causal" if causal else "non-causal") + (
+            f", window {window}" if windowed else "")
+        names[key] = (f"{arch.split('-')[0]} train ({b}, {sq}) x {t}, "
+                      f"H {h}/{hkv}, D {d}, {kind}",
+                      window if windowed else 0)
+    rows = []
+    for key in sorted(bwd_tally, key=str):
+        name, window = names[key]
+        qwen_main = key[1:7] == (*TRAIN_SHAPE, TRAIN_SHAPE[1],
+                                 qwen.n_heads, qwen.n_kv_heads,
+                                 qwen.head_dim)
+        rows.append(attention_bwd_row(
+            name, key, window, bwd_tally[key],
+            (torch.bfloat16, torch.float32) if qwen_main
+            else (torch.bfloat16,)))
+    check(any(r["launches"] == main["launches"]["flash_attention_bwd"]
+              for r in rows), "[train] no backward row for the main path")
+    log(f"[train] backward rows {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    # forward shapes of the training paths that no earlier row covers
+    covered = {(r.get("kernel_route"), *r["shape"]) for r in prev_rows
+               if r["name"].startswith("flash_attention (")}
+    for key, n in sorted(fwd_tally.items(), key=str):
+        route, b, sq, t, h, hkv, d, causal, windowed = key
+        if (route, b, sq, t, h, hkv, d) in covered:
+            continue
+        arch = fwd_arch[key]
+        cfg = family_config(arch, TRAIN_FAMILIES.get(arch, (0,))[0])
+        kw = dict(causal=causal, window=cfg.window if windowed else 0)
+        rows.append(attention_row(f"{arch} train forward", cfg, sq, t, kw,
+                                  n, b, (torch.bfloat16,)))
+        covered.add((route, b, sq, t, h, hkv, d))
+    log(f"[train] forward rows {time.perf_counter() - t1:.1f} s")
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def profile_lm_decode(bundle, params, tok) -> None:
     """Eight warm decode steps under torch.profiler: device time by kernel
     and the device's busy share of the steps' wall time."""
@@ -2768,8 +3401,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one more device-mode self_join, point "
                     "queries one at a time (host functions, launches a "
-                    "probed bucket) and eight LM decode steps with "
-                    "torch.profiler: device busy share and top kernels")
+                    "probed bucket), eight LM decode steps and two "
+                    "training steps with torch.profiler: device busy "
+                    "share and top kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2796,12 +3430,15 @@ def main() -> int:
         for k in kernels:   # the [serve] phase's own launch counts
             k["serve_launches"] = serve["launches"][wrapper[k["name"]]]
         t_dist = time.perf_counter()
-        dist = phase_dist(main_path, workdir)
+        dist = phase_dist(workdir)
         log(f"[dist] phase {time.perf_counter() - t_dist:.1f} s")
         for k in kernels:   # the [dist] phase's own launch counts
             k["dist_launches"] = dist["launches"][wrapper[k["name"]]]
         t_parity = time.perf_counter()
-        phase_parity(workdir)
+        parity = phase_parity(workdir)
+        for k in kernels:   # the planned join's own launch counts (100k)
+            k["parity_launches"] = {
+                "planned": parity["planned"][wrapper[k["name"]]]}
         log(f"[parity] phase {time.perf_counter() - t_parity:.1f} s")
         if args.profile:
             phase_profile(main_path["shapes"]["index"])
@@ -2816,6 +3453,8 @@ def main() -> int:
     kernels += phase_lm(args.profile)
     kernels += phase_lm_families()
     log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += phase_train(kernels, args.profile)
     log(f"[done] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,13 @@ call by ``launch_plan`` from dtype and shape alone:
 
 There is no fallback between routes: a refused launch raises. Callers go
 through ``ops``, which checks inputs, dispatches by device and counts
-launches."""
+launches.
+
+The gradient, ``flash_attention_bwd``, has one route for every shape and
+dtype: ``csrc/flash_backward.cu`` on the CUDA cores, three launches (each
+row's softmax statistics and dO·O; dK and dV per key tile; dQ per row
+tile) with no atomics. It has no TPU counterpart: the JAX package
+differentiates its plain attention."""
 from __future__ import annotations
 
 import ctypes
@@ -68,6 +74,14 @@ def _aligned(x: torch.Tensor, elems: int) -> bool:
             and x.data_ptr() % (elems * x.element_size()) == 0)
 
 
+def _dense(x: torch.Tensor, elems: int) -> torch.Tensor:
+    """x contiguous with its base aligned to ``elems`` elements (a copy of
+    its own where it is not)."""
+    if x.is_contiguous() and x.data_ptr() % (elems * x.element_size()) == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, q_offset: int, scale: float,
                     kv_positions: torch.Tensor | None,
@@ -108,3 +122,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention {plan.route} kernel launch failed (cudaError "
             f"{rc}) at B={b} Sq={sq} T={t} H={h} Hkv={hkv} D={d} {q.dtype}")
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool, window: int, q_offset: int,
+                        scale: float, kv_positions: torch.Tensor | None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention``: q (B, Sq, H, D), k/v
+    (B, T, Hkv, D) CUDA tensors of one dtype in ``DTYPES`` (read through
+    their strides), ``out`` the forward's output and ``dout`` its gradient
+    (B, Sq, H, D) → (dq, dk, dv), contiguous, in q's dtype, launched on the
+    current stream (``csrc/flash_backward.cu``). float32 scratch for each
+    row's softmax max, sum and dO·O is allocated here."""
+    q, k, v = (x if _aligned(x, 4) else _dense(x, 4) for x in (q, k, v))
+    out = _dense(out.to(q.dtype), 4)
+    dout = _dense(dout.to(q.dtype), 4)
+    b, sq, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    rows = sq * (h // hkv)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    stats = torch.empty((b, hkv, rows, 2), dtype=torch.float32,
+                        device=q.device)
+    delta = torch.empty((b, hkv, rows), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    pos_ptr = None if kv_positions is None else kv_positions.data_ptr()
+    rc = _build.load().flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        pos_ptr, strides, b, sq, t, h, hkv, d, int(causal), int(window),
+        int(q_offset), float(scale), int(q.dtype == torch.bfloat16),
+        stats.data_ptr(), delta.data_ptr(), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention backward kernel launch failed (cudaError "
+            f"{rc}) at B={b} Sq={sq} T={t} H={h} Hkv={hkv} D={d} {q.dtype}")
+    return dq, dk, dv

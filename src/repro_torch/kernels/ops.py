@@ -18,6 +18,13 @@ launch at once, and a bare ``+=`` on a shared dict can lose counts. The
 kernels mask ragged edges themselves, so no wrapper pads. The DiskJoin
 engines and the build call only this layer; the LM's attention calls
 ``gqa_attention``.
+
+``gqa_attention`` is differentiable: where grad is on and an operand
+requires it (training), it runs as an ``autograd.Function`` whose forward
+is the same launch and whose backward is ``gqa_attention_bwd`` (the
+backward kernel on CUDA, counted under ``flash_attention_bwd``; its plain
+version on the CPU). Otherwise (serving, under ``torch.inference_mode``)
+it calls the forward directly and saves nothing.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             "bucket_assign": 0,
             **{c: 0 for c in _assign_kernel.ROUTE_COUNTERS.values()},
             "flash_attention": 0,
-            **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()}}
+            **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()},
+            "flash_attention_bwd": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -230,18 +238,74 @@ def gqa_attention(q, k, v, *, causal: bool, window: int = 0,
                          f"{tuple(kv_positions.shape)}")
     dev = _same_device(q, k, v, *(() if kv_positions is None
                                   else (kv_positions,)))
-    if dev.type == "cpu":
+    if dev.type == "cuda":
+        _check_kernel_operands(q, k, v)
+        if kv_positions is not None:
+            kv_positions = kv_positions.to(torch.int32).contiguous()
+    args = (q, k, v, kv_positions, causal, window, q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _GQAAttention.apply(*args)
+    return _gqa_forward(*args)
+
+
+def _gqa_forward(q, k, v, kv_positions, causal, window, q_offset):
+    """The forward of checked operands: ``ref`` on the CPU, the route
+    ``launch_plan`` picks on CUDA."""
+    b, sq, h, d = q.shape
+    if q.device.type == "cpu":
         return ref.gqa_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset,
                                  kv_positions=kv_positions)
-    _check_kernel_operands(q, k, v)
-    if 0 in (b, sq, h, t):
-        return torch.zeros((b, sq, h, d), dtype=q.dtype, device=dev)
-    if kv_positions is not None:
-        kv_positions = kv_positions.to(torch.int32).contiguous()
+    if 0 in (b, sq, h, k.shape[1]):
+        return torch.zeros((b, sq, h, d), dtype=q.dtype, device=q.device)
     return _launch_flash(q, k, v, causal=causal, window=window,
                          q_offset=q_offset, scale=d ** -0.5,
                          kv_positions=kv_positions)
+
+
+class _GQAAttention(torch.autograd.Function):
+    """``gqa_attention`` under autograd: the forward launch as it is, q, k,
+    v and the output saved, and ``gqa_attention_bwd`` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_positions, causal, window, q_offset):
+        out = _gqa_forward(q, k, v, kv_positions, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, out, kv_positions)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, kv_positions = ctx.saved_tensors
+        dq, dk, dv = gqa_attention_bwd(q, k, v, out, dout,
+                                       kv_positions=kv_positions, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, kv_positions=None):
+    """The gradient of ``gqa_attention``: its operands, its output ``out``
+    and the output's gradient ``dout`` → (dq, dk, dv) in q's dtype. On
+    CUDA the backward kernel (``csrc/flash_backward.cu``), counted once a
+    call under ``flash_attention_bwd``; on the CPU its plain version,
+    ``ref.gqa_attention_bwd``."""
+    b, sq, h, d = q.shape
+    dev = _same_device(q, k, v, out, dout)
+    if dev.type == "cpu":
+        return ref.gqa_attention_bwd(q, k, v, out, dout, causal=causal,
+                                     window=window, q_offset=q_offset,
+                                     kv_positions=kv_positions)
+    _check_kernel_operands(q, k, v)
+    if 0 in (b, sq, h, k.shape[1]):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if kv_positions is not None:
+        kv_positions = kv_positions.to(torch.int32).contiguous()
+    grads = _flash_kernel.flash_attention_bwd(
+        q, k, v, out, dout, causal=causal, window=window, q_offset=q_offset,
+        scale=d ** -0.5, kv_positions=kv_positions)
+    count_launch("flash_attention_bwd")
+    return grads
 
 
 def _launch_flash(q, k, v, **kw) -> torch.Tensor:

@@ -97,3 +97,40 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
     return out.to(q.dtype).reshape(b, sq, h, d)
+
+
+def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, dout: torch.Tensor, *, causal: bool,
+                      window: int = 0, q_offset: int = 0,
+                      kv_positions: torch.Tensor | None = None):
+    """The gradient of ``gqa_attention``: (dq, dk, dv) in q's, k's and v's
+    dtypes, computed in float32 from the forward's output ``out`` and its
+    gradient ``dout`` (B, Sq, H, D), by the explicit formulas the backward
+    kernel computes: P = softmax(S) under ``gqa_mask`` with the −1e30 fill,
+    δ = rowsum(dO∘O), dS = P∘(dP − δ) where a key is seen and 0 where it
+    is masked (the fill passes no gradient), dQ = dS·K·scale,
+    dK = dSᵀ·Q·scale, dV = Pᵀ·dO. Autograd of the JAX package's
+    ``gqa_scores_chunked`` gives the same gradient; a row that sees no key
+    has a uniform P there too."""
+    b, sq, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = d ** -0.5
+    kv_pos = (torch.arange(t, device=q.device) if kv_positions is None
+              else kv_positions.to(q.device))
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    do = dout.reshape(b, sq, hkv, g, d).to(torch.float32)
+    o = out.reshape(b, sq, hkv, g, d).to(torch.float32)
+    mask = gqa_mask(sq, kv_pos, causal=causal, window=window,
+                    q_offset=q_offset)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    p = torch.softmax(torch.where(mask, s, NEG_FILL), dim=-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, vf)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", do, o)
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

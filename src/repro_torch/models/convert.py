@@ -79,6 +79,28 @@ def _layer_slices(cfg: ArchConfig, stacked_groups: list):
                 yield start + r * len(pattern) + pi, stacked_groups[gi][pi], r
 
 
+def reference_leaves(cfg: ArchConfig, names) -> list[list[str]]:
+    """The port's parameter ``names`` grouped by the reference leaf each came
+    from: a decoder-only layer's ``layers.{i}.{path}`` joins the other
+    layers at the same pattern position of its group (the reference stacks
+    them into one leaf); every other name is a leaf of its own. Groups in
+    the order of their first name, names in the given order."""
+    position = {}
+    if not cfg.enc_dec:
+        for gi, (reps, pattern, start) in enumerate(_groups(cfg)):
+            for pi in range(len(pattern)):
+                for r in range(reps):
+                    position[start + r * len(pattern) + pi] = (gi, pi)
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        key = name
+        if parts[0] == "layers" and not cfg.enc_dec:
+            key = ("groups", *position[int(parts[1])], ".".join(parts[2:]))
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())
+
+
 def _port_name(path: str) -> str:
     """``embed.table`` → ``embed``, ``lm_head.kernel`` → ``lm_head``; other
     paths are the port's as they are."""

@@ -8,7 +8,9 @@ are); the math is plain functions. Dtypes: parameters in
 RoPE internals. Attention goes through ``kernels.ops.gqa_attention``: the
 flash kernel on CUDA, its plain version on the CPU. The reference's
 ``shard(...)`` annotations are the identity on one card and are dropped.
-Parameters do not require grad: this is the serving path.
+Parameters are built without ``requires_grad``, so serving builds no graph;
+the training entry points (``launch.steps.make_train_step``) turn it on,
+and attention then runs under autograd with the backward kernel.
 """
 from __future__ import annotations
 

@@ -10,13 +10,18 @@ MoE, SSM, hybrid, VLM) and enc-dec (whisper).
   decode(params, tokens, caches)     → (logits (B, V), caches, updated in
                                         place)
   prefill(params, batch)             → last-token logits (B, V)
-  loss(params, batch)                → raises: training is not ported yet
-                                        (ROADMAP §1 item 3)
+  loss(params, batch)               → (scalar loss, {"nll", "aux"}; enc-dec
+                                        {"nll"}), differentiable
 
 The reference's functions are pure and jitted; these run eagerly on the
 bundle's device (``device=None`` means CUDA). The reference's
 ``input_specs`` and ``cache_specs`` exist for its dry-run lowering, which is
 not ported.
+
+The loss is the reference's, copied and not fixed: the chunked
+cross-entropy reads the logits from the embedding table
+(``params["embed"]["table"]`` there, ``params.embed`` here) for every
+family, tied or not, so an untied ``lm_head`` gets no gradient in training.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -48,15 +54,67 @@ def build_model(cfg: ArchConfig, *, device=None) -> ModelBundle:
     return _build_lm(cfg, device)
 
 
-def _loss(params, batch):
-    raise NotImplementedError(
-        "the training loss (chunked_xent, train/*) is not ported to PyTorch "
-        "yet (ROADMAP §1 item 3: training)")
+# ---------------------------------------------------------------------------
+# loss: chunked cross-entropy (vocab logits never fully materialized)
+# ---------------------------------------------------------------------------
+def _chunk_nll(h: torch.Tensor, table: torch.Tensor, y: torch.Tensor):
+    """One chunk: (summed NLL over valid labels, count of valid labels),
+    both float32 scalars."""
+    logits = h.to(torch.float32) @ table.to(torch.float32).T   # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.clamp_min(0)[..., None])[..., 0]
+    valid = (y >= 0).to(torch.float32)
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_xent(hidden: torch.Tensor, table: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """hidden (B, S, d) × table (V, d) × labels (B, S) → mean NLL over the
+    labels ≥ 0 (float32 scalar), as the reference's ``chunked_xent``: S is
+    padded to a multiple of ``chunk`` with label −1, and the (B, chunk, V)
+    float32 logits exist one chunk at a time. Where a graph is built each
+    chunk is checkpointed, so its logits are recomputed in the backward
+    pass instead of kept (the reference's ``lax.scan`` body)."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        pad = chunk - s % chunk
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        s += pad
+    remat = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or table.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        args = (hidden[:, c0:c0 + chunk], table, labels[:, c0:c0 + chunk])
+        nll, n = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                  if remat else _chunk_nll(*args))
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _labels(batch: dict, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(batch["labels"], dtype=torch.long, device=device)
 
 
 def _build_lm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
+    is_vlm = cfg.family == "vlm"
+
     def init(seed: int = 0):
         return transformer.init_lm(cfg, seed, device)
+
+    def loss(params, batch):
+        """Mean next-token NLL over the tokens plus the MoE aux loss (VLM:
+        over the token suffix only, after the patches)."""
+        patches = batch.get("patches") if is_vlm else None
+        hidden, aux = transformer.forward(params, batch["tokens"],
+                                          patch_embeds=patches)
+        if is_vlm:
+            hidden = hidden[:, patches.shape[1]:]
+        nll = chunked_xent(hidden[:, :-1], params.embed,
+                           _labels(batch, device)[:, 1:])
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def init_cache(batch, max_seq):
         return transformer.init_cache(cfg, batch, max_seq, device)
@@ -72,12 +130,21 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
                                         patch_embeds=batch.get("patches"))
         return transformer.lm_logits(params, hidden[:, -1:])[:, 0]
 
-    return ModelBundle(cfg, device, init, _loss, init_cache, decode, prefill)
+    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill)
 
 
 def _build_encdec(cfg: ArchConfig, device: torch.device) -> ModelBundle:
     def init(seed: int = 0):
         return encdec.init_encdec(cfg, seed, device)
+
+    def loss(params, batch):
+        """Mean next-token NLL of the decoder over the encoded frames (the
+        reference's enc-dec loss has no aux term and no remat)."""
+        enc_out = encdec.encode(params, batch["frames"])
+        hidden = encdec.decode_train(params, batch["tokens"], enc_out)
+        nll = chunked_xent(hidden[:, :-1], params.embed,
+                           _labels(batch, device)[:, 1:])
+        return nll, {"nll": nll}
 
     def init_cache(batch, max_seq, params=None, enc_out=None):
         if params is None:
@@ -94,4 +161,4 @@ def _build_encdec(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         hidden = encdec.decode_train(params, batch["tokens"], enc_out)
         return encdec.logits(params, hidden[:, -1:])[:, 0]
 
-    return ModelBundle(cfg, device, init, _loss, init_cache, decode, prefill)
+    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill)

@@ -8,6 +8,10 @@ loop (PyTorch runs eagerly, so there is no program size to bound). Layer
 FFN from ``moe.first_k_dense`` on, which is what the reference's groups
 give each layer. ``convert.params_from_jax`` maps the stacked pytree onto
 these layers. Decode caches are one dict per layer, of the layer's kind.
+``forward(..., remat=True)`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` over each layer group's scan body does; it acts only
+where a graph is built (training).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -153,12 +158,18 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
 
 
 def _run_layers(model: LM, x: torch.Tensor, positions: torch.Tensor,
-                caches: Optional[list]):
-    """→ (x, summed aux loss, float32 scalar)."""
+                caches: Optional[list], remat: bool = False):
+    """→ (x, summed aux loss, float32 scalar). ``remat``: each block is
+    recomputed in the backward pass instead of keeping its activations
+    (only where x is part of a graph)."""
     rope = _rope(model.cfg, positions)
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and caches is None and x.requires_grad
     for i, block in enumerate(model.layers):
-        x, aux = block(x, rope, None if caches is None else caches[i])
+        if remat:
+            x, aux = checkpoint(block, x, rope, None, use_reentrant=False)
+        else:
+            x, aux = block(x, rope, None if caches is None else caches[i])
         if aux is not None:
             total_aux = total_aux + aux
     return x, total_aux
@@ -167,17 +178,19 @@ def _run_layers(model: LM, x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # public forward passes
 # ---------------------------------------------------------------------------
-def forward(model: LM, tokens, patch_embeds=None):
-    """Prefill forward → (hidden (B, S, d), summed aux loss).
+def forward(model: LM, tokens, patch_embeds=None, remat: bool = True):
+    """Training/prefill forward → (hidden (B, S, d), summed aux loss).
 
     VLM: ``patch_embeds`` (B, P, frontend_dim) are projected and
-    prepended; the returned hidden covers the full (P + S) sequence."""
+    prepended; the returned hidden covers the full (P + S) sequence.
+    ``remat`` as the reference's: per-block recomputation in backward (the
+    values are the same either way)."""
     x = _embed(model, tokens)
     if patch_embeds is not None:
         px = torch.as_tensor(patch_embeds, device=x.device).to(x.dtype)
         x = torch.cat([px @ model.frontend.proj, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = _run_layers(model, x, positions, None)
+    x, aux = _run_layers(model, x, positions, None, remat)
     return model.final_norm(x, model.cfg.norm_eps), aux
 
 

@@ -983,3 +983,194 @@ def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-3,
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (csrc/flash_backward.cu)
+# ---------------------------------------------------------------------------
+# Three limits a gradient, each must hold. (1) max |kernel − plain| ≤ tol ·
+# max |plain|: bf16 one rounding of each output in the kernel and in the
+# plain version (2^-8 relative) with room for float32 sums taken in another
+# order; float32 the sums' order alone. (2) Element by element, |Δ| ≤
+# atol · max |plain| + rtol · |plain|: a bf16 output may round one ulp
+# (≤ 2^-7 relative) away from the plain one, but no more, so a small
+# element (a late key's dK or dV) is held to its own size. (3) ‖Δ‖ ≤
+# norm · ‖plain‖ (chip_smoke.py's rows read ≤ 7.3e-5 in bf16 and ≤ 1.3e-6
+# in float32 on an H100 80GB HBM3, and are held to the same limits).
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+BWD_ELEM_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _bwd_inputs(cuda, case, g, dtype, d, hkv=3):
+    q, k, v, kw = _flash_inputs(cuda, case, g, dtype, d, hkv)
+    gen = torch.Generator(device=cuda).manual_seed(g * 7 + d)
+    out = ref.gqa_attention(q, k, v, **kw)
+    dout = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
+    return q, k, v, out, dout, kw
+
+
+def _check_bwd(got, q, k, v, out, dout, kw):
+    torch.cuda.synchronize()
+    want = ref.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    atol, rtol = BWD_ELEM_TOL[q.dtype]
+    for name, x, w, like in zip("qkv", got, want, (q, k, v)):
+        assert x.shape == like.shape and x.dtype == like.dtype, name
+        assert torch.isfinite(x).all(), name
+        x, w = x.float(), w.float()
+        diff, top = (x - w).abs(), w.abs().max().item()
+        err = diff.max().item()
+        assert err <= BWD_TOL[q.dtype] * top, (name, err)
+        over = diff > atol * top + rtol * w.abs()
+        assert not over.any(), (name, int(over.sum()), diff[over].max())
+        norm = (x - w).norm().item() / max(w.norm().item(), 1e-30)
+        assert norm <= BWD_NORM_TOL[q.dtype], (name, norm)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("g", [1, 2, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_kernel_matches_plain(cuda, case, g, dtype, d):
+    """Every mask kind (causal, non-causal cross Sq ≠ T, window, offset,
+    rolling cache positions with empty slots), g 1 to 10, D 64 to 256:
+    one counted call, three launches."""
+    q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, dtype, d)
+    ops.reset_launches()
+    got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert ops.LAUNCHES["flash_attention"] == 0
+    _check_bwd(got, q, k, v, out, dout, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_rows_with_no_visible_key(cuda, dtype):
+    """Rows whose keys are all masked (cache slots not yet written, or at
+    positions after the query) get the reference's uniform P: dV shares
+    dO / T, dQ and dK get nothing from them."""
+    q, k, v, out, dout, kw = _bwd_inputs(cuda, "decode_empty_slots", 2,
+                                         dtype, 64)
+    kw = dict(kw, q_offset=0,
+              kv_positions=torch.tensor([-1, 5, 9] * 66 + [-1, 7],
+                                        dtype=torch.int32, device=cuda))
+    q = q.repeat(1, 3, 1, 1)   # rows at positions 0, 1, 2: none sees a key
+    out = ref.gqa_attention(q, k, v, **kw)
+    dout = dout.repeat(1, 3, 1, 1)
+    got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    _check_bwd(got, q, k, v, out, dout, kw)
+    assert got[0].abs().max().item() == 0.0
+    assert got[2].abs().max().item() > 0.0
+
+
+def test_flash_bwd_is_deterministic(cuda):
+    """No atomics: two identical calls give the same bits."""
+    q, k, v, out, dout, kw = _bwd_inputs(cuda, "prefill_ragged", 10,
+                                         torch.bfloat16, 128)
+    a = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    b = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_uses_both_kernels(cuda, dtype):
+    """Under autograd the forward launches its route once and the backward
+    the backward kernel once; the gradients are the plain backward's. Under
+    inference_mode nothing is saved and no backward exists."""
+    q, k, v, _, dout, kw = _bwd_inputs(cuda, "window", 2, dtype, 128)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ops.reset_launches()
+    out = ops.gqa_attention(q, k, v, **kw)
+    assert out.requires_grad
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    _check_bwd(grads, q.detach(), k.detach(), v.detach(), out.detach(),
+               dout, kw)
+    with torch.inference_mode():
+        served = ops.gqa_attention(q, k, v, **kw)
+    assert not served.requires_grad
+    assert torch.equal(served, out.detach())
+    assert ops.LAUNCHES["flash_attention"] == 2
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+def test_train_step_launches_and_matches_cpu(cuda):
+    """One train step of the smoke config (float32) on the card and on the
+    CPU from the same weights: with remat, each attention layer launches
+    the forward twice (the forward and its recomputation) and the backward
+    kernel once; the loss, every gradient and every parameter after the
+    AdamW step agree with the CPU's plain path."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import AdamW, AdamWConfig
+
+    class RecordingAdamW(AdamW):
+        """AdamW that keeps a copy of the gradients it is handed."""
+
+        def update(self, grads, state, params):
+            self.grads = {n: None if g is None else g.detach().cpu().clone()
+                          for n, g in grads.items()}
+            return super().update(grads, state, params)
+
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    tok = torch.randint(0, cfg.vocab, (2, 40))
+    weights = build_model(cfg).init(3).state_dict()
+    out = {}
+    for device in ("cuda", "cpu"):
+        bundle = build_model(cfg, device=device)
+        params = bundle.init(3)
+        params.load_state_dict({k: v.to(device) for k, v in weights.items()})
+        opt = RecordingAdamW(AdamWConfig(learning_rate=1e-3, warmup_steps=1))
+        step = make_train_step(bundle, opt)
+        batch = {"tokens": tok.to(device), "labels": tok.to(device)}
+        ops.reset_launches()
+        params, state, met = step(params, opt.init(params), batch)
+        out[device] = (params, met, ops.launches_snapshot(), opt.grads)
+    launches = out["cuda"][2]
+    assert launches["flash_attention"] == 2 * cfg.n_layers
+    assert launches["flash_attention_bwd"] == cfg.n_layers
+    assert out["cpu"][2]["flash_attention_bwd"] == 0
+    np.testing.assert_allclose(float(out["cuda"][1]["loss"]),
+                               float(out["cpu"][1]["loss"]), rtol=1e-5)
+    # every gradient within ‖Δ‖ ≤ 1e-4 ‖g_cpu‖: this is what holds the
+    # backward kernel (and the rest of the backward) to the CPU's
+    card_grads, cpu_grads = out["cuda"][3], out["cpu"][3]
+    assert sorted(card_grads) == sorted(cpu_grads)
+    for name, want in cpu_grads.items():
+        got = card_grads[name]
+        assert (got is None) == (want is None), name
+        if want is None:
+            continue
+        assert torch.isfinite(got).all(), name
+        rel = (got - want).norm().item() / max(want.norm().item(), 1e-30)
+        assert rel <= 1e-4, (name, rel)
+    # a sanity check of the update only: Adam's first step moves each
+    # element by about lr·sign(g), so where float32 noise flips the sign of
+    # a near-zero gradient the two differ by up to 2·lr, and nowhere by more
+    card = dict(out["cuda"][0].named_parameters())
+    for name, p in out["cpu"][0].named_parameters():
+        np.testing.assert_allclose(card[name].detach().cpu().numpy(),
+                                   p.detach().numpy(), rtol=0,
+                                   atol=2.01e-3, err_msg=name)
+
+
+def test_serving_launches_unchanged_after_training(cuda):
+    """A model whose parameters require grad (after a train step) serves
+    under inference_mode exactly as before: the same forward launches, no
+    backward launch, no graph."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    bundle = build_model(cfg)
+    params = bundle.init(0).requires_grad_(True)
+    tok = torch.randint(0, cfg.vocab, (4, 40), device=cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        pre = bundle.prefill(params, {"tokens": tok})
+        caches = bundle.init_cache(4, 64)
+        logits, _ = bundle.decode(params, tok[:, :1], caches)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_prefill_tc"] == 2
+    assert ops.LAUNCHES["flash_decode_split"] == 2
+    assert ops.LAUNCHES["flash_attention_bwd"] == 0
+    assert pre.grad_fn is None and logits.grad_fn is None

@@ -11,9 +11,9 @@ pytest.importorskip("torch")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
-SUBPACKAGES = ["baselines", "compute", "configs", "core", "data", "ft", "io",
-               "kernels", "models", "obs", "plan", "runtime", "serve",
-               "store"]
+SUBPACKAGES = ["baselines", "checkpoint", "compute", "configs", "core",
+               "data", "ft", "io", "kernels", "launch", "models", "obs",
+               "plan", "runtime", "serve", "store", "train"]
 # `import jax…`, `from jax…`, `import repro`/`repro.x`, `from repro.x` — but
 # never `repro_torch`
 FORBIDDEN = re.compile(
@@ -48,7 +48,12 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.obs.export", "repro_torch.obs.live",
                 "repro_torch.obs.dash", "repro_torch.obs.webhook",
                 "repro_torch.core.distributed", "repro_torch.ft.join_ckpt",
-                "repro_torch.data.dedup"]
+                "repro_torch.data.dedup", "repro_torch.data.pipeline",
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.train.optimizer",
+                "repro_torch.train.grad_compress",
+                "repro_torch.train.train_loop", "repro_torch.launch.steps",
+                "repro_torch.launch.train"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

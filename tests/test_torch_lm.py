@@ -150,13 +150,27 @@ def test_serve_engine_tokens_match(lm):
 
 
 def test_not_ported_families_raise():
-    """Every family builds and serves; what is still unported raises: the
-    training loss, for every family, naming ROADMAP's training item."""
+    """Every family builds, serves and now trains: its loss is finite on a
+    small batch. What is still unported raises, naming ROADMAP's
+    multi-card item: training sharded over a mesh."""
+    from repro_torch.train import TrainConfig, train
+    rng = np.random.default_rng(0)
     for name in list_archs():
-        bundle = build_model(smoke_config(get_config(name)), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP §1 item 3: training"):
-            bundle.loss(None, {})
+        cfg = smoke_config(get_config(name))
+        bundle = build_model(cfg, device="cpu")
+        tok = rng.integers(0, cfg.vocab, (1, 6))
+        batch = {"tokens": tok, "labels": tok}
+        if cfg.family == "vlm":
+            batch["patches"] = rng.normal(size=(1, cfg.encoder.n_patches,
+                                                cfg.encoder.frontend_dim))
+        if cfg.enc_dec:
+            batch["frames"] = rng.normal(size=(1, cfg.encoder.n_frames,
+                                               cfg.d_model))
+        loss, _ = bundle.loss(bundle.init(0), batch)
+        assert np.isfinite(loss.item()), name
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 1"):
+        train(smoke_config(get_config("qwen3-0.6b")), TrainConfig(),
+              device="cpu", mesh=object())
 
 
 def test_device_none_means_cuda():
