@@ -141,8 +141,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    finite and the last below the first; warm step ms, tokens/s and peak
    memory logged. Counts zeroed just before, read just after: every
    forward flash call on the tensor-core route, 28 × 2 a step (remat
-   recomputes each once), and 28 backward calls a step
-   (``csrc/flash_backward.cu``). float32 at full width, 2 layers,
+   recomputes each once), and 28 backward calls a step, every one on the
+   tensor-core backward (``csrc/flash_backward_sm90.cu``; none on the
+   CUDA-core ``csrc/flash_backward.cu``). float32 at full width, 2 layers,
    (2, 64): the loss, every gradient and the parameters after one AdamW
    step on the card against the port's CPU path on the same weights
    (loss 1e-5 relative, gradients ‖Δ‖ ≤ 1e-4 ‖g‖). bf16, 2 layers,
@@ -156,7 +157,9 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    flash forward and backward calls attention layers × calls. Every
    backward shape of these paths (tallied by shape while they run; qwen3's
    in float32 too) is held against ``ref.gqa_attention_bwd`` and timed
-   beside the plain version, SDPA's backward and the bound; training's
+   beside the plain version, SDPA's backward and the bound, its route
+   logged, and the CUDA-core backward held to the same limits and timed
+   beside it (the ``kernels`` line lists both routes); training's
    forward shapes that no ``[lm]`` row covers get forward rows.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -291,7 +294,9 @@ FLASH_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
     "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
-FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_backward.cu"
+FLASH_BWD_SOURCES = {
+    "tc": "src/repro_torch/kernels/csrc/flash_backward_sm90.cu",
+    "simt": "src/repro_torch/kernels/csrc/flash_backward.cu"}
 # [train]: qwen3-0.6b at full width and depth, 10 AdamW steps on
 # TokenPipeline batches, remat on
 TRAIN_SHAPE, TRAIN_STEPS = (4, 2048), 10
@@ -314,8 +319,9 @@ TRAIN_FAMILY_LR = 1e-2
 # float32: the sums' order); element by element |Δ| ≤ atol · max |plain| +
 # rtol · |plain| (a bf16 output one ulp, ≤ 2^-7 relative, from the plain
 # one: a small element, a late key's dK or dV, is held to its own size;
-# the worst element read 0.53 of its limit on an H100 80GB HBM3);
-# ‖Δ‖ ≤ norm · ‖plain‖ (read there: bf16 ≤ 7.3e-5, float32 ≤ 1.3e-6)
+# the worst element read 0.63 of its limit on the tensor-core route, 0.53
+# on the CUDA-core one, on an H100 80GB HBM3); ‖Δ‖ ≤ norm · ‖plain‖ (read
+# there: bf16 ≤ 2.8e-4 tensor-core, ≤ 7.3e-5 CUDA-core; float32 ≤ 1.3e-6)
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 BWD_ELEM_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 1e-4)}
 BWD_NORM_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
@@ -2841,9 +2847,10 @@ def train_main(fwd_tally, bwd_tally) -> dict:
           and launches["flash_decode_split"] == 0,
           f"[train] forward flash calls: {2 * n * TRAIN_STEPS} tensor-core "
           f"calls expected, got {launches}")
-    check(launches["flash_attention_bwd"] == n * TRAIN_STEPS,
-          f"[train] backward calls {launches['flash_attention_bwd']} != "
-          f"{n} x {TRAIN_STEPS}")
+    check(launches["flash_attention_bwd"] == launches["flash_bwd_tc"]
+          == n * TRAIN_STEPS and launches["flash_bwd_simt"] == 0,
+          f"[train] backward calls: {n} x {TRAIN_STEPS} on the tensor-core "
+          f"route expected, got {launches}")
     check(all(launches[k] == 0 for k in JOIN_KERNELS), "join kernels ran")
     ends = np.array([t for t, _ in stamps])
     steps_ms = np.diff(ends) * 1e3          # step i ≥ 1: end to end
@@ -2860,7 +2867,8 @@ def train_main(fwd_tally, bwd_tally) -> dict:
         f"{peak / 2 ** 30:.2f} GiB; run {wall:.2f} s")
     log(f"[train] launches: forward flash {launches['flash_attention']} "
         f"(tc {launches['flash_prefill_tc']}), backward "
-        f"{launches['flash_attention_bwd']}; by backward shape "
+        f"{launches['flash_attention_bwd']} (tc {launches['flash_bwd_tc']}, "
+        f"simt {launches['flash_bwd_simt']}); by backward shape "
         f"{sorted(bwd_tally.items())}")
     return dict(losses=losses, warm_ms=warm_ms, tokens_s=tokens_s,
                 peak=peak, launches=launches)
@@ -2997,6 +3005,7 @@ def train_resume(workdir: str) -> dict:
             raise TrainKill(step)
 
     saves, writes = [], []
+    ops.reset_launches()
     with timing_checkpoints(saves, writes):
         whole = train(cfg, tcfg("whole"))
         killed = False
@@ -3008,6 +3017,9 @@ def train_resume(workdir: str) -> dict:
         restart = list_checkpoints(
             os.path.join(workdir, "killed"))[-1][0]
         resumed = train(cfg, tcfg("killed"))
+    launches = ops.launches_snapshot()
+    check(launches["flash_bwd_tc"] > 0 and launches["flash_bwd_simt"] == 0,
+          f"[train] kill/resume backward routes {launches}")
     want = whole["loss_history"][restart:]
     got = resumed["loss_history"]
     check(len(got) == len(want) == TRAIN_RESUME_STEPS - restart,
@@ -3095,9 +3107,10 @@ def train_family(arch: str, layers: int, shape: tuple, fwd_tally,
         bwd = attention_layers(cfg)
         fwd = 2 * bwd
     check(launches["flash_attention"] == fwd
-          and launches["flash_attention_bwd"] == bwd,
+          and launches["flash_attention_bwd"] == launches["flash_bwd_tc"]
+          == bwd,
           f"[train] {arch}: {fwd} forward and {bwd} backward flash calls "
-          f"expected, got {launches}")
+          f"(all on the tensor-core backward) expected, got {launches}")
     log(f"[train] {arch}: {cfg.n_layers} layers"
         + (f" + {cfg.encoder.n_layers} encoder" if cfg.enc_dec else "")
         + f" at full width, bf16, ({b}, {s}) tokens: one step "
@@ -3124,57 +3137,77 @@ def sdpa_call(q, k, v, kw, mask):
     return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def bwd_errors(what: str, dtype, got, want) -> tuple[float, float, float]:
+    """A backward's gradients against the plain version's under the three
+    limits (BWD_TOL, BWD_ELEM_TOL, BWD_NORM_TOL); → the worst max |Δ|, the
+    worst element's |Δ| as a share of its limit, and the worst ‖Δ‖/‖plain‖
+    over dq, dk, dv."""
+    err = elem = norm = 0.0
+    atol, rtol = BWD_ELEM_TOL[dtype]
+    for gname, x, w in zip("qkv", got, want):
+        check(torch.isfinite(x).all().item(), f"{what} d{gname} not finite")
+        x, w = x.float(), w.float()
+        diff = (x - w).abs()
+        e, top = diff.max().item(), w.abs().max().item()
+        check(e <= BWD_TOL[dtype] * top, f"{what} {dtype} d{gname}: max "
+              f"|Δ| {e} > {BWD_TOL[dtype]} x {top}")
+        el = (diff / (atol * top + rtol * w.abs()).clamp_min(1e-30)
+              ).max().item()
+        check(el <= 1.0, f"{what} {dtype} d{gname}: an element past {atol} "
+              f"max|plain| + {rtol} |plain| ({el:.3g} of its limit)")
+        nr = diff.norm().item() / max(w.norm().item(), 1e-30)
+        check(nr <= BWD_NORM_TOL[dtype], f"{what} {dtype} d{gname}: "
+              f"‖Δ‖/‖plain‖ {nr} > {BWD_NORM_TOL[dtype]}")
+        err, elem, norm = max(err, e), max(elem, el), max(norm, nr)
+    return err, elem, norm
+
+
 def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
                       dtypes=(torch.bfloat16,)) -> dict:
-    """One backward shape of the paths: the kernel against
-    ``ref.gqa_attention_bwd`` on the same inputs (BWD_TOL), in each of
-    ``dtypes``; timed (CUDA graphs) beside the plain version and SDPA's
-    backward (its forward + backward less its forward), and the bound: five
-    products (S, dP, dV, dK, dQ) at the bf16 tensor-core rate for bf16
-    (the CUDA cores' for float32), against each input read once (q, k, v,
-    O, dO) and each gradient written once."""
+    """One backward shape of the paths: the kernel of the route
+    ``bwd_launch_plan`` picks against ``ref.gqa_attention_bwd`` on the same
+    inputs (the three limits), in each of ``dtypes``; timed (CUDA graphs)
+    beside the plain version and SDPA's backward (its forward + backward
+    less its forward), and the bound: five products (S, dP, dV, dK, dQ) at
+    the bf16 tensor-core rate for bf16 (the CUDA cores' for float32),
+    against each input read once (q, k, v, O, dO) and each gradient written
+    once. In bf16 the CUDA-core backward (``simt``) is held to the same
+    limits and timed beside the tensor-core one."""
     t_row = time.perf_counter()
     _, b, sq, t, h, hkv, d, causal, _ = key
     kw = dict(causal=causal, window=window)
     mask = ref.gqa_mask(sq, torch.arange(t, device="cuda"), causal=causal,
                         window=window, q_offset=0)
     cfg = types.SimpleNamespace(n_heads=h, n_kv_heads=hkv, head_dim=d)
-    stats = {}
+    stats, routes = {}, {}
     for dtype in dtypes:
+        plan = flash.bwd_launch_plan(b, sq, t, h, hkv, d, dtype)
+        routes[dtype] = plan.route
         q, k, v = attn_inputs(cfg, b, sq, t, dtype, seed=sq + 3 * t)
         dout = torch.randn(q.shape, device="cuda", generator=torch.Generator(
             device="cuda").manual_seed(sq + t)).to(dtype)
         out = ops.gqa_attention(q, k, v, **kw)
-        got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
         want = ref.gqa_attention_bwd(q, k, v, out, dout, **kw)
-        err = elem = norm = 0.0
-        atol, rtol = BWD_ELEM_TOL[dtype]
-        for gname, x, w in zip("qkv", got, want):
-            check(torch.isfinite(x).all().item(), f"flash backward {name} "
-                  f"d{gname} not finite")
-            x, w = x.float(), w.float()
-            diff = (x - w).abs()
-            e, top = diff.max().item(), w.abs().max().item()
-            check(e <= BWD_TOL[dtype] * top, f"flash backward {name} "
-                  f"{dtype} d{gname}: max |Δ| {e} > {BWD_TOL[dtype]} x "
-                  f"{top}")
-            # the worst element's |Δ| as a share of its own limit
-            el = (diff / (atol * top + rtol * w.abs()).clamp_min(1e-30)
-                  ).max().item()
-            check(el <= 1.0, f"flash backward {name} {dtype} d{gname}: an "
-                  f"element past {atol} max|plain| + {rtol} |plain| "
-                  f"({el:.3g} of its limit)")
-            nr = diff.norm().item() / max(w.norm().item(), 1e-30)
-            check(nr <= BWD_NORM_TOL[dtype], f"flash backward {name} "
-                  f"{dtype} d{gname}: ‖Δ‖/‖plain‖ {nr} > "
-                  f"{BWD_NORM_TOL[dtype]}")
-            err, elem, norm = max(err, e), max(elem, el), max(norm, nr)
-            del x, w, diff
-        del got, want
+        err, elem, norm = bwd_errors(f"flash backward {name}", dtype,
+                                     ops.gqa_attention_bwd(q, k, v, out,
+                                                           dout, **kw), want)
         big = b * sq * t > 2 ** 24
         reps = dict(reps=5, replays=2) if big else {}
         ms = graph_ms(lambda: ops.gqa_attention_bwd(q, k, v, out, dout,
                                                     **kw), **reps)
+        simt = None
+        if plan.route != "simt":  # the CUDA-core backward on the same inputs
+            simt_plan = flash.BwdLaunchPlan("simt", 4, 1, plan.stats_shape,
+                                            plan.delta_shape)
+            args = dict(kw, q_offset=0, scale=d ** -0.5, kv_positions=None,
+                        plan=simt_plan)
+            simt_err = bwd_errors(f"flash backward (simt) {name}", dtype,
+                                  flash.flash_attention_bwd(
+                                      q, k, v, out, dout, **args), want)
+            simt = dict(err=simt_err[0], elem=simt_err[1], norm=simt_err[2],
+                        ms=graph_ms(lambda: flash.flash_attention_bwd(
+                            q, k, v, out, dout, **args), **reps))
+        del want
         plain = graph_ms(lambda: ref.gqa_attention_bwd(q, k, v, out, dout,
                                                        **kw),
                          reps=2 if big else 5, replays=2)
@@ -3195,7 +3228,7 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
                       for x, w in zip(lib_grads, ref.gqa_attention_bwd(
                           q, k, v, out, dout, **kw)))
         stats[dtype] = dict(err=err, elem=elem, norm=norm, ms=ms,
-                            plain=plain,
+                            plain=plain, simt=simt,
                             lib=lib_both - lib_fwd, lib_both=lib_both,
                             lib_fwd=lib_fwd, lib_err=lib_err)
         del q, k, v, out, dout, qg, kg, vg, lib_grads
@@ -3207,20 +3240,24 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
     elems = 4 * q_elems + 2 * kv_elems * keys + 2 * kv_elems * t
     bf = torch.bfloat16
     bms, by = bound(0.0, 2 * elems, flops_bf16=5 * matmul)
-    st = stats[bf]
+    st, route = stats[bf], routes[bf]
     msg = (f"[train] flash backward {name} ({b}, {sq}, {h}, {d}) x ({b}, "
-           f"{t}, {hkv}, {d}): bf16 max abs err {st['err']!r} (worst "
-           f"element {st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
-           f"{st['norm']:.3g}); kernel "
-           f"{st['ms']:.4f} ms, plain {st['plain']:.4f} ms, sdpa backward "
-           f"{st['lib']:.4f} ms (fwd+bwd {st['lib_both']:.4f}, fwd "
-           f"{st['lib_fwd']:.4f}; grads vs plain max abs "
-           f"{st['lib_err']:.3g}), bound {bms:.4f} ms ({by}), share "
-           f"{bms / st['ms']:.3f}; launches {launches}")
+           f"{t}, {hkv}, {d}): bf16 route {route}, max abs err "
+           f"{st['err']!r} (worst element {st['elem']:.3g} of its limit, "
+           f"‖Δ‖/‖plain‖ {st['norm']:.3g}); kernel {st['ms']:.4f} ms")
+    if st["simt"] is not None:
+        msg += (f", simt kernel {st['simt']['ms']:.4f} ms (worst element "
+                f"{st['simt']['elem']:.3g}, ‖Δ‖/‖plain‖ "
+                f"{st['simt']['norm']:.3g})")
+    msg += (f", plain {st['plain']:.4f} ms, sdpa backward "
+            f"{st['lib']:.4f} ms (fwd+bwd {st['lib_both']:.4f}, fwd "
+            f"{st['lib_fwd']:.4f}; grads vs plain max abs "
+            f"{st['lib_err']:.3g}), bound {bms:.4f} ms ({by}), share "
+            f"{bms / st['ms']:.3f}; launches {launches}")
     t_row = time.perf_counter() - t_row
     row = dict(
         name=f"flash_attention backward ({name})", route="cuda",
-        source=FLASH_BWD_SOURCE,
+        kernel_route=route, source=FLASH_BWD_SOURCES[route],
         replaces="src/repro/kernels/flash_attention.py:77",
         port_only="backward of flash_attention; the JAX package "
                   "differentiates its plain attention "
@@ -3230,12 +3267,16 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
         plain_ms=st["plain"], bound_ms=bms, bound_by=by,
         library_ms=st["lib"], library_max_abs_err=st["lib_err"],
         shape=[b, sq, t, h, hkv, d], dtype="bfloat16", ok=True)
+    if st["simt"] is not None:
+        row.update(simt_ms=st["simt"]["ms"], simt_max_abs_err=st["simt"]["err"],
+                   simt_elem_share_of_tol=st["simt"]["elem"],
+                   simt_norm_rel_err=st["simt"]["norm"])
     f32 = torch.float32
     if f32 in stats:
         st = stats[f32]
         bms32, by32 = bound(5 * matmul, 4 * elems)
-        msg += (f"; f32 max abs err {st['err']!r} (worst element "
-                f"{st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
+        msg += (f"; f32 route {routes[f32]}, max abs err {st['err']!r} "
+                f"(worst element {st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
                 f"{st['norm']:.3g}), kernel {st['ms']:.4f} ms"
                 f", plain {st['plain']:.4f} ms, sdpa backward "
                 f"{st['lib']:.4f} ms, bound {bms32:.4f} ms ({by32}), share "
@@ -3247,6 +3288,22 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
                    f32_bound_by=by32, f32_library_ms=st["lib"])
     log(msg + f"; row {t_row:.1f} s")
     return row
+
+
+def simt_bwd_entry(row: dict, launches: int) -> dict:
+    """The CUDA-core backward's own ``kernels`` entry at ``row``'s shape
+    (bf16), from the numbers that row measured; ``launches`` is its count
+    on the main path."""
+    return dict(
+        name=row["name"].replace("backward (", "backward, simt route ("),
+        route="cuda", kernel_route="simt", source=FLASH_BWD_SOURCES["simt"],
+        replaces=row["replaces"], port_only=row["port_only"],
+        launches=launches, max_abs_err=row["simt_max_abs_err"],
+        elem_share_of_tol=row["simt_elem_share_of_tol"],
+        norm_rel_err=row["simt_norm_rel_err"], ms=row["simt_ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape=row["shape"], dtype="bfloat16", ok=True)
 
 
 def profile_train_step() -> None:
@@ -3285,6 +3342,13 @@ def profile_train_step() -> None:
         f"(busy share {busy / (wall * 1e3):.3f})")
     for key, ms, n in rows[:14]:
         log(f"[profile-train] {ms:9.3f} ms  {n:5d} x  {key[:90]}")
+    # the attention backward's launches, by kernel (both routes' names)
+    split = {k: (ms, n) for k, ms, n in rows
+             if "bwd_" in k and "_kernel" in k}
+    log("[profile-train] flash backward a step: " + ", ".join(
+        f"{k[k.index('bwd_'):].split('(')[0]} {ms:.3f} ms ({n} x)"
+        for k, (ms, n) in sorted(split.items(), key=lambda r: -r[1][0]))
+        + f"; {sum(ms for ms, _ in split.values()):.3f} ms in all")
 
 
 def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
@@ -3348,8 +3412,11 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
             name, key, window, bwd_tally[key],
             (torch.bfloat16, torch.float32) if qwen_main
             else (torch.bfloat16,)))
-    check(any(r["launches"] == main["launches"]["flash_attention_bwd"]
-              for r in rows), "[train] no backward row for the main path")
+    main_rows = [r for r in rows
+                 if r["launches"] == main["launches"]["flash_attention_bwd"]]
+    check(main_rows, "[train] no backward row for the main path")
+    rows.append(simt_bwd_entry(main_rows[0],
+                               main["launches"]["flash_bwd_simt"]))
     log(f"[train] backward rows {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     # forward shapes of the training paths that no earlier row covers

@@ -131,5 +131,9 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, strides, *shape,
             ctypes.c_float, i32, ptr, ptr, i32, ptr]
         lib.flash_bwd_launch.restype = i32
+        lib.flash_bwd_sm90_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, strides, *shape,
+            ctypes.c_float, i32, ptr, ptr, ptr, ptr, i32, ptr]
+        lib.flash_bwd_sm90_launch.restype = i32
         _lib = lib
         return lib

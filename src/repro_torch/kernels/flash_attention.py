@@ -15,11 +15,20 @@ There is no fallback between routes: a refused launch raises. Callers go
 through ``ops``, which checks inputs, dispatches by device and counts
 launches.
 
-The gradient, ``flash_attention_bwd``, has one route for every shape and
-dtype: ``csrc/flash_backward.cu`` on the CUDA cores, three launches (each
-row's softmax statistics and dO·O; dK and dV per key tile; dQ per row
-tile) with no atomics. It has no TPU counterpart: the JAX package
-differentiates its plain attention."""
+The gradient, ``flash_attention_bwd``, takes one of two routes, chosen
+once per call by ``bwd_launch_plan``:
+
+* ``"tc"`` — bf16 at head dims 64, 128 and 256:
+  ``csrc/flash_backward_sm90.cu``, ``wgmma`` on the tensor cores with P
+  and dS split into two bf16 halves; three launches (each row's softmax
+  statistics and dO·O; dK and dV per key tile, its row walk split where
+  the key tiles alone would not fill the card; dQ per row tile), and a
+  fourth that sums the splits' float32 partials in a fixed order;
+* ``"simt"`` — the rest (float32, bf16 at other head dims):
+  ``csrc/flash_backward.cu`` on the CUDA cores, the same three launches.
+
+Neither uses atomics, so two calls give the same bits. The gradient has no
+TPU counterpart: the JAX package differentiates its plain attention."""
 from __future__ import annotations
 
 import ctypes
@@ -36,6 +45,9 @@ DECODE_MAX_ROWS = 16            # Sq·g at or below which decode splits KV
 SPLIT_KEYS = 64                 # keys per split (kSplit in flash_decode.cu)
 ROUTE_COUNTERS = {"tc": "flash_prefill_tc", "split": "flash_decode_split",
                   "simt": "flash_simt"}
+BWD_ROUTE_COUNTERS = {"tc": "flash_bwd_tc", "simt": "flash_bwd_simt"}
+BWD_TILE = 64       # rows and keys a tile in flash_backward_sm90.cu (kTile)
+SM_COUNT = 132      # an H100 SXM's SMs: the dK/dV grid the split aims for
 
 
 @dataclass(frozen=True)
@@ -64,6 +76,42 @@ def launch_plan(b: int, sq: int, t: int, h: int, hkv: int, d: int,
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return LaunchPlan("tc", 8)
     return LaunchPlan("simt", 4)
+
+
+@dataclass(frozen=True)
+class BwdLaunchPlan:
+    """How one attention backward call launches: its route, the element
+    alignment the route reads strides at (16 bytes for TMA and the 16-byte
+    copies, 4 elements for the CUDA-core kernel), the number of parts the
+    dK/dV row walk is split into, and the float32 scratch shapes:
+    (B, Hkv, Sq·g, 2) for each row's (m, l), (B, Hkv, Sq·g) for dO·O, and
+    (n_split, B, T, Hkv, D) for each of the partial dK and dV (empty when
+    the walk is not split)."""
+    route: str
+    align: int
+    n_split: int
+    stats_shape: tuple[int, ...]
+    delta_shape: tuple[int, ...]
+    part_shape: tuple[int, ...] = ()
+
+
+def bwd_launch_plan(b: int, sq: int, t: int, h: int, hkv: int, d: int,
+                    dtype: torch.dtype) -> BwdLaunchPlan:
+    """The backward's route and launch sizes for q (b, sq, h, d) against
+    k/v (b, t, hkv, d) of ``dtype``; a pure function of ints and a dtype.
+    On the ``tc`` route, where the dK/dV grid (one block per 64-key tile,
+    KV head and batch) is under ``SM_COUNT`` blocks, each key tile's row
+    walk is split into the fewest parts that bring the grid to
+    ``SM_COUNT``, and at most one part per 64-row tile."""
+    rows = sq * (h // hkv)
+    stats, delta = (b, hkv, rows, 2), (b, hkv, rows)
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        blocks = b * hkv * -(-t // BWD_TILE)
+        n = 1 if blocks >= SM_COUNT else min(-(-SM_COUNT // blocks),
+                                             -(-rows // BWD_TILE))
+        return BwdLaunchPlan("tc", 8, n, stats, delta,
+                             (n, b, t, hkv, d) if n > 1 else ())
+    return BwdLaunchPlan("simt", 4, 1, stats, delta)
 
 
 def _aligned(x: torch.Tensor, elems: int) -> bool:
@@ -127,38 +175,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
                         causal: bool, window: int, q_offset: int,
-                        scale: float, kv_positions: torch.Tensor | None
+                        scale: float, kv_positions: torch.Tensor | None,
+                        plan: BwdLaunchPlan
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention``: q (B, Sq, H, D), k/v
     (B, T, Hkv, D) CUDA tensors of one dtype in ``DTYPES`` (read through
     their strides), ``out`` the forward's output and ``dout`` its gradient
     (B, Sq, H, D) → (dq, dk, dv), contiguous, in q's dtype, launched on the
-    current stream (``csrc/flash_backward.cu``). float32 scratch for each
-    row's softmax max, sum and dO·O is allocated here."""
-    q, k, v = (x if _aligned(x, 4) else _dense(x, 4) for x in (q, k, v))
-    out = _dense(out.to(q.dtype), 4)
-    dout = _dense(dout.to(q.dtype), 4)
+    current stream by ``plan``'s route. The float32 scratch (each row's
+    softmax max, sum and dO·O; the split walk's partial dK and dV) is
+    allocated here."""
+    if plan.route == "tc" and (q.dtype != torch.bfloat16
+                               or q.shape[-1] not in TC_HEAD_DIMS):
+        raise ValueError(f"the tc backward takes bf16 at head dims "
+                         f"{TC_HEAD_DIMS}, got {q.dtype} at "
+                         f"{q.shape[-1]}")
+    q, k, v = (x if _aligned(x, plan.align) else _dense(x, plan.align)
+               for x in (q, k, v))
+    out = _dense(out.to(q.dtype), plan.align)
+    dout = _dense(dout.to(q.dtype), plan.align)
     b, sq, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    rows = sq * (h // hkv)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    stats = torch.empty((b, hkv, rows, 2), dtype=torch.float32,
+    stats = torch.empty(plan.stats_shape, dtype=torch.float32,
                         device=q.device)
-    delta = torch.empty((b, hkv, rows), dtype=torch.float32, device=q.device)
+    delta = torch.empty(plan.delta_shape, dtype=torch.float32,
+                        device=q.device)
     strides = (ctypes.c_longlong * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     pos_ptr = None if kv_positions is None else kv_positions.data_ptr()
-    rc = _build.load().flash_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        pos_ptr, strides, b, sq, t, h, hkv, d, int(causal), int(window),
-        int(q_offset), float(scale), int(q.dtype == torch.bfloat16),
-        stats.data_ptr(), delta.data_ptr(), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            pos_ptr, strides, b, sq, t, h, hkv, d, int(causal), int(window),
+            int(q_offset), float(scale))
+    device = q.device.index
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _build.load()
+    if plan.route == "tc":
+        parts = (torch.empty((2, *plan.part_shape), dtype=torch.float32,
+                             device=q.device) if plan.part_shape else None)
+        rc = lib.flash_bwd_sm90_launch(
+            *head, plan.n_split, stats.data_ptr(), delta.data_ptr(),
+            None if parts is None else parts[0].data_ptr(),
+            None if parts is None else parts[1].data_ptr(), device, stream)
+    else:
+        rc = lib.flash_bwd_launch(
+            *head, int(q.dtype == torch.bfloat16), stats.data_ptr(),
+            delta.data_ptr(), device, stream)
     if rc != 0:
         raise RuntimeError(
-            f"flash_attention backward kernel launch failed (cudaError "
-            f"{rc}) at B={b} Sq={sq} T={t} H={h} Hkv={hkv} D={d} {q.dtype}")
+            f"flash_attention backward {plan.route} kernel launch failed "
+            f"(cudaError {rc}) at B={b} Sq={sq} T={t} H={h} Hkv={hkv} D={d} "
+            f"{q.dtype}")
     return dq, dk, dv

@@ -22,8 +22,9 @@ engines and the build call only this layer; the LM's attention calls
 ``gqa_attention`` is differentiable: where grad is on and an operand
 requires it (training), it runs as an ``autograd.Function`` whose forward
 is the same launch and whose backward is ``gqa_attention_bwd`` (the
-backward kernel on CUDA, counted under ``flash_attention_bwd``; its plain
-version on the CPU). Otherwise (serving, under ``torch.inference_mode``)
+route ``bwd_launch_plan`` picks on CUDA, counted under
+``flash_attention_bwd`` and under its route; its plain version on the
+CPU). Otherwise (serving, under ``torch.inference_mode``)
 it calls the forward directly and saves nothing.
 """
 from __future__ import annotations
@@ -41,14 +42,16 @@ from repro_torch.kernels import ref
 # per wrapper; the route counters say which kernel served each call: the
 # verify routes count the launches of both distance wrappers, the assign
 # routes those of ``bucket_assign``, the flash routes the calls of the
-# attention region (one a layer)
+# attention region (one a layer), the backward routes the calls of its
+# gradient
 LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             **{c: 0 for c in _pairwise_kernel.ROUTE_COUNTERS.values()},
             "bucket_assign": 0,
             **{c: 0 for c in _assign_kernel.ROUTE_COUNTERS.values()},
             "flash_attention": 0,
             **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()},
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0,
+            **{c: 0 for c in _flash_kernel.BWD_ROUTE_COUNTERS.values()}}
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -287,9 +290,10 @@ def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
                       q_offset: int = 0, kv_positions=None):
     """The gradient of ``gqa_attention``: its operands, its output ``out``
     and the output's gradient ``dout`` → (dq, dk, dv) in q's dtype. On
-    CUDA the backward kernel (``csrc/flash_backward.cu``), counted once a
-    call under ``flash_attention_bwd``; on the CPU its plain version,
-    ``ref.gqa_attention_bwd``."""
+    CUDA the route ``bwd_launch_plan`` picks (``csrc/flash_backward_sm90.cu``
+    for bf16 at D 64/128/256, ``csrc/flash_backward.cu`` otherwise),
+    counted once a call under ``flash_attention_bwd`` and once under its
+    route; on the CPU its plain version, ``ref.gqa_attention_bwd``."""
     b, sq, h, d = q.shape
     dev = _same_device(q, k, v, out, dout)
     if dev.type == "cpu":
@@ -301,10 +305,13 @@ def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     if kv_positions is not None:
         kv_positions = kv_positions.to(torch.int32).contiguous()
+    plan = _flash_kernel.bwd_launch_plan(b, sq, k.shape[1], h, k.shape[2],
+                                         d, q.dtype)
     grads = _flash_kernel.flash_attention_bwd(
         q, k, v, out, dout, causal=causal, window=window, q_offset=q_offset,
-        scale=d ** -0.5, kv_positions=kv_positions)
-    count_launch("flash_attention_bwd")
+        scale=d ** -0.5, kv_positions=kv_positions, plan=plan)
+    count_launch("flash_attention_bwd",
+                 _flash_kernel.BWD_ROUTE_COUNTERS[plan.route])
     return grads
 
 

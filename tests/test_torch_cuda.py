@@ -986,7 +986,8 @@ def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# flash attention backward (csrc/flash_backward.cu)
+# flash attention backward (csrc/flash_backward_sm90.cu for bf16 at D 64,
+# 128 and 256, csrc/flash_backward.cu otherwise)
 # ---------------------------------------------------------------------------
 # Three limits a gradient, each must hold. (1) max |kernel − plain| ≤ tol ·
 # max |plain|: bf16 one rounding of each output in the kernel and in the
@@ -995,8 +996,9 @@ def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch):
 # atol · max |plain| + rtol · |plain|: a bf16 output may round one ulp
 # (≤ 2^-7 relative) away from the plain one, but no more, so a small
 # element (a late key's dK or dV) is held to its own size. (3) ‖Δ‖ ≤
-# norm · ‖plain‖ (chip_smoke.py's rows read ≤ 7.3e-5 in bf16 and ≤ 1.3e-6
-# in float32 on an H100 80GB HBM3, and are held to the same limits).
+# norm · ‖plain‖ (chip_smoke.py's rows read ≤ 2.8e-4 in bf16 on the
+# tensor-core route, ≤ 7.3e-5 on the CUDA-core one, and ≤ 1.3e-6 in
+# float32 on an H100 80GB HBM3, and are held to the same limits).
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 BWD_ELEM_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
 BWD_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
@@ -1010,9 +1012,24 @@ def _bwd_inputs(cuda, case, g, dtype, d, hkv=3):
     return q, k, v, out, dout, kw
 
 
-def _check_bwd(got, q, k, v, out, dout, kw):
+def _bwd_route(q, k) -> str:
+    b, sq, h, d = q.shape
+    return flash.bwd_launch_plan(b, sq, k.shape[1], h, k.shape[2], d,
+                                 q.dtype).route
+
+
+def _assert_one_bwd(route: str) -> None:
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    for r, counter in flash.BWD_ROUTE_COUNTERS.items():
+        assert ops.LAUNCHES[counter] == int(r == route), ops.LAUNCHES
+
+
+def _check_bwd(got, q, k, v, out, dout, kw, want=None):
+    """``got`` against ``want`` (default: the plain backward) under the
+    three limits."""
     torch.cuda.synchronize()
-    want = ref.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    if want is None:
+        want = ref.gqa_attention_bwd(q, k, v, out, dout, **kw)
     atol, rtol = BWD_ELEM_TOL[q.dtype]
     for name, x, w, like in zip("qkv", got, want, (q, k, v)):
         assert x.shape == like.shape and x.dtype == like.dtype, name
@@ -1034,11 +1051,12 @@ def _check_bwd(got, q, k, v, out, dout, kw):
 def test_flash_bwd_kernel_matches_plain(cuda, case, g, dtype, d):
     """Every mask kind (causal, non-causal cross Sq ≠ T, window, offset,
     rolling cache positions with empty slots), g 1 to 10, D 64 to 256:
-    one counted call, three launches."""
+    one counted call on its route, the tensor-core kernel for bf16 (D 64,
+    128 and 256 all take it), the CUDA-core one for float32."""
     q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, dtype, d)
     ops.reset_launches()
     got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
-    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
     assert ops.LAUNCHES["flash_attention"] == 0
     _check_bwd(got, q, k, v, out, dout, kw)
 
@@ -1056,7 +1074,9 @@ def test_flash_bwd_rows_with_no_visible_key(cuda, dtype):
     q = q.repeat(1, 3, 1, 1)   # rows at positions 0, 1, 2: none sees a key
     out = ref.gqa_attention(q, k, v, **kw)
     dout = dout.repeat(1, 3, 1, 1)
+    ops.reset_launches()
     got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
     _check_bwd(got, q, k, v, out, dout, kw)
     assert got[0].abs().max().item() == 0.0
     assert got[2].abs().max().item() > 0.0
@@ -1066,10 +1086,60 @@ def test_flash_bwd_is_deterministic(cuda):
     """No atomics: two identical calls give the same bits."""
     q, k, v, out, dout, kw = _bwd_inputs(cuda, "prefill_ragged", 10,
                                          torch.bfloat16, 128)
+    ops.reset_launches()
     a = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     b = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_bwd_tc"] == 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("d,window", [(256, 100), (128, 0), (64, 0)])
+def test_flash_bwd_split_is_deterministic(cuda, d, window):
+    """One KV head at B 1 (recurrentgemma's kind, g 10): the dK/dV row walk
+    is split and its float32 parts summed in a fixed order, so two calls
+    give the same bits, and the gradients hold the plain version's limits."""
+    b, s, hkv, g = 1, 300, 1, 10
+    plan = flash.bwd_launch_plan(b, s, s, hkv * g, hkv, d, torch.bfloat16)
+    assert plan.route == "tc" and plan.n_split > 1
+    gen = torch.Generator(device=cuda).manual_seed(d + window)
+    q = torch.randn(b, s, hkv * g, d, device=cuda, generator=gen)
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(causal=True, window=window, q_offset=0)
+    out = ref.gqa_attention(q, k, v, **kw)
+    dout = torch.randn(out.shape, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    ops.reset_launches()
+    first = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    again = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_bwd_tc"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _check_bwd(first, q, k, v, out, dout, kw)
+
+
+@pytest.mark.parametrize("case", ["prefill_ragged", "window", "full",
+                                  "chunk40_rolling_window",
+                                  "decode_empty_slots"])
+@pytest.mark.parametrize("g", [1, 2, 10])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_tc_matches_simt(cuda, case, g, d):
+    """The two routes' bf16 gradients on the same inputs, each route forced
+    by its plan, held to each other under the three limits."""
+    q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, torch.bfloat16, d)
+    b, sq, h, _ = q.shape
+    tc = flash.bwd_launch_plan(b, sq, k.shape[1], h, k.shape[2], d,
+                               torch.bfloat16)
+    simt = flash.BwdLaunchPlan("simt", 4, 1, tc.stats_shape, tc.delta_shape)
+    pos = kw.get("kv_positions")
+    args = dict(causal=kw["causal"], window=kw["window"],
+                q_offset=kw["q_offset"], scale=d ** -0.5,
+                kv_positions=None if pos is None else pos.to(torch.int32))
+    got = flash.flash_attention_bwd(q, k, v, out, dout, plan=tc, **args)
+    want = flash.flash_attention_bwd(q, k, v, out, dout, plan=simt, **args)
+    _check_bwd(got, q, k, v, out, dout, kw, want=want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1084,7 +1154,7 @@ def test_flash_autograd_uses_both_kernels(cuda, dtype):
     assert out.requires_grad
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert ops.LAUNCHES["flash_attention"] == 1
-    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
     _check_bwd(grads, q.detach(), k.detach(), v.detach(), out.detach(),
                dout, kw)
     with torch.inference_mode():
@@ -1131,6 +1201,7 @@ def test_train_step_launches_and_matches_cpu(cuda):
     launches = out["cuda"][2]
     assert launches["flash_attention"] == 2 * cfg.n_layers
     assert launches["flash_attention_bwd"] == cfg.n_layers
+    assert launches["flash_bwd_simt"] == cfg.n_layers   # float32
     assert out["cpu"][2]["flash_attention_bwd"] == 0
     np.testing.assert_allclose(float(out["cuda"][1]["loss"]),
                                float(out["cpu"][1]["loss"]), rtol=1e-5)
