@@ -110,9 +110,11 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    the split-KV kernel (``flash_decode.cu``) and every prefill call by the
    tensor-core kernel (``flash_prefill_sm90.cu``). The kernels are held
    against their plain version at the prefill and decode shapes in bf16
-   and float32 (float32 prefill runs the CUDA-core kernel,
-   ``flash_attention.cu``), and timed (device time, from CUDA graphs)
-   beside their bound and ``scaled_dot_product_attention``. In float32,
+   and float32 (float32 prefill runs the float32 tensor-core kernel,
+   ``flash_prefill_sm90_f32.cu``, with the CUDA-core one,
+   ``flash_attention.cu``, checked and timed beside it), and timed (device
+   time, from CUDA graphs) beside their bound and
+   ``scaled_dot_product_attention``. In float32,
    decode must reproduce the teacher-forced forward over a 64-token
    prompt, B = 4 (tests/test_models.py's tolerance).
    Then every other family at its published widths (``FAMILIES``):
@@ -143,7 +145,14 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    forward flash call on the tensor-core route, 28 × 2 a step (remat
    recomputes each once), and 28 backward calls a step, every one on the
    tensor-core backward (``csrc/flash_backward_sm90.cu``; none on the
-   CUDA-core ``csrc/flash_backward.cu``). float32 at full width, 2 layers,
+   CUDA-core ``csrc/flash_backward.cu``). Then examples/train_lm.py's
+   float32 model (``hundred_m_config``: 12 layers, d_model 640, 10/5
+   heads of 64, vocab 32,768) at its batch of 8 x 256 tokens, 10 steps
+   instead of 300, the same optimizer: the loss falls, and every forward
+   and backward flash call takes the float32 tensor-core routes
+   (``csrc/flash_prefill_sm90_f32.cu``, ``csrc/flash_backward_sm90_f32.cu``;
+   none on a CUDA-core or bf16 route); warm step ms, tokens/s and peak
+   memory logged. float32 at full width, 2 layers,
    (2, 64): the loss, every gradient and the parameters after one AdamW
    step on the card against the port's CPU path on the same weights
    (loss 1e-5 relative, gradients ‖Δ‖ ≤ 1e-4 ‖g‖). bf16, 2 layers,
@@ -160,7 +169,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    beside the plain version, SDPA's backward and the bound, its route
    logged, and the CUDA-core backward held to the same limits and timed
    beside it (the ``kernels`` line lists both routes); training's
-   forward shapes that no ``[lm]`` row covers get forward rows.
+   forward shapes that no ``[lm]`` row covers get forward rows (the 100M
+   path's in float32, the CUDA-core forward timed beside them).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
@@ -292,10 +302,12 @@ ASSIGN_SOURCES = {
 CROSSOVER_CENTERS = 65_536   # the reference's center-index crossover
 FLASH_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_prefill_sm90.cu",
+    "tc32": "src/repro_torch/kernels/csrc/flash_prefill_sm90_f32.cu",
     "split": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 FLASH_BWD_SOURCES = {
     "tc": "src/repro_torch/kernels/csrc/flash_backward_sm90.cu",
+    "tc32": "src/repro_torch/kernels/csrc/flash_backward_sm90_f32.cu",
     "simt": "src/repro_torch/kernels/csrc/flash_backward.cu"}
 # [train]: qwen3-0.6b at full width and depth, 10 AdamW steps on
 # TokenPipeline batches, remat on
@@ -304,6 +316,11 @@ TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=1, total_steps=10)
 TRAIN_CPU = (2, (2, 64))      # float32 card vs CPU: layers, (B, S)
 TRAIN_RESUME = (2, (2, 256))  # kill/resume, bf16: layers, (B, S)
 TRAIN_RESUME_STEPS, TRAIN_KILL_AT, TRAIN_CKPT_EVERY = 6, 4, 2
+# [train]: examples/train_lm.py's float32 model (hundred_m_config) at the
+# example's batch (8 x 256 tokens), 10 steps (its --tiny count) instead of
+# its 300; TRAIN_OPT is the example's optimizer at 10 steps
+HUNDRED_M = "qwen3-100m"
+TRAIN_100M_SHAPE, TRAIN_100M_STEPS = (8, 256), 10
 # one bf16 step each at full width: arch → (layers, (B, S)); whisper's S
 # is its decoder's tokens over its 1,500 stub frames
 TRAIN_FAMILIES = {"olmoe-1b-7b": (2, (1, 512)),
@@ -2147,20 +2164,55 @@ def check_attention(q, k, v, kw) -> float:
     return (got - want).abs().max().item()
 
 
+def simt_attention(q, k, v, kw) -> tuple[float, float]:
+    """The CUDA-core forward (``simt``) forced on a call the tensor-core
+    route takes: held to the same limit; → (max abs err, device ms)."""
+    pos = kw.get("kv_positions")
+    args = dict(causal=kw["causal"], window=kw.get("window", 0),
+                q_offset=kw.get("q_offset", 0), scale=q.shape[-1] ** -0.5,
+                kv_positions=None if pos is None else pos.to(torch.int32),
+                plan=flash.LaunchPlan("simt", 4))
+    got = flash.flash_attention(q, k, v, **args).float()
+    want = ref.gqa_attention(q, k, v, **kw).float()
+    over = (got - want).abs() - ATTN_TOL[q.dtype] * (1.0 + want.abs())
+    check(torch.isfinite(got).all().item() and over.max().item() <= 0,
+          f"simt flash {q.dtype} {tuple(q.shape)} outside tolerance")
+    return ((got - want).abs().max().item(),
+            graph_ms(lambda: flash.flash_attention(q, k, v, **args)))
+
+
+def route_bound(dtype, route: str, flops: float, nbytes: float
+                ) -> tuple[float, str]:
+    """The bound of ``flops`` of work on ``dtype`` operands: bf16 at the
+    bf16 tensor-core rate; float32 on the tc32 route as its three TF32
+    products each (3×TF32, as the verify and assign rows count it), on the
+    CUDA cores at their float32 rate."""
+    if dtype == torch.bfloat16:
+        return bound(0.0, nbytes, flops_bf16=flops)
+    if route == "tc32":
+        return bound(0.0, nbytes, flops_tf32=3.0 * flops)
+    return bound(flops, nbytes)
+
+
 def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
-                  dtypes=(torch.float32, torch.bfloat16)) -> dict:
-    """One shape of the path (batch ``b``): checked in each of ``dtypes``
-    (bf16 is the path's; float32 adds the float32 routes), each through the
-    route ``launch_plan`` gives it; timed beside the plain version, SDPA
-    and the bound. ``launches``: the main path's count of the bf16
-    route."""
-    errs, routes, ms, plain, lib = {}, {}, {}, {}, {}
+                  dtypes=(torch.float32, torch.bfloat16),
+                  main=torch.bfloat16) -> dict:
+    """One shape of the path (batch ``b``): checked in each of ``dtypes``,
+    each through the route ``launch_plan`` gives it; timed beside the plain
+    version, SDPA and the bound. ``main`` is the path's dtype, and
+    ``launches`` the path's count of its route; a bf16 row's float32 call
+    is logged beside it (``f32_*``). Where a float32 call takes the
+    tensor-core route (``tc32``), the CUDA-core kernel (``simt``) is held to
+    the same limit and timed beside it, and both bounds are given: the
+    route's (3×TF32) and the CUDA cores' float32 one."""
+    errs, routes, ms, plain, lib, simt = {}, {}, {}, {}, {}, {}
     kw = dict(kw)
     kw.setdefault("causal", True)
     mask = ref.gqa_mask(sq, kw.get("kv_positions",
                                    torch.arange(t, device="cuda")),
                         causal=kw["causal"], window=kw.get("window", 0),
                         q_offset=kw.get("q_offset", 0))
+    lib_errs = {}
     for dtype in dtypes:
         q, k, v = attn_inputs(cfg, b, sq, t, dtype, seed=sq + t)
         routes[dtype] = flash.launch_plan(
@@ -2168,53 +2220,84 @@ def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
             dtype).route
         errs[dtype] = check_attention(q, k, v, kw)
         ms[dtype] = graph_ms(lambda: ops.gqa_attention(q, k, v, **kw))
+        if routes[dtype] == "tc32":
+            simt[dtype] = simt_attention(q, k, v, kw)
         plain[dtype] = graph_ms(lambda: ref.gqa_attention(q, k, v, **kw),
                                 reps=5)
         lib_fn = lambda: sdpa_call(q, k, v, kw, mask)  # noqa: E731
         lib[dtype] = graph_ms(lib_fn)
-    want = ref.gqa_attention(q, k, v, **kw).float()
-    lib_err = (lib_fn().transpose(1, 2).float() - want).abs().max().item()
-    # every product at the bf16 tensor-core rate (Q·Kᵀ and P·V: 2 x matmul
-    # FLOPs; the prefill kernel's split of P into two bf16 products is its
+        if dtype == main:
+            want = ref.gqa_attention(q, k, v, **kw).float()
+            lib_errs[dtype] = (lib_fn().transpose(1, 2).float()
+                               - want).abs().max().item()
+    # every product at its route's rate (Q·Kᵀ and P·V: 2 x matmul FLOPs;
+    # the prefill kernel's split of P into two bf16 products is its
     # design's cost, not the work's). Bytes: Q and O, the K/V rows some
     # query sees, and the positions if given.
     visible = int(mask.sum().item())        # (query, key) pairs computed
     keys = int(mask.any(0).sum().item())    # cache rows that must be read
     matmul = 2.0 * b * cfg.n_heads * cfg.head_dim * visible
     pos = kw.get("kv_positions")
-    elems = 2 * q.numel() + 2 * b * keys * cfg.n_kv_heads * cfg.head_dim
+    elems = 2 * b * sq * cfg.n_heads * cfg.head_dim \
+        + 2 * b * keys * cfg.n_kv_heads * cfg.head_dim
     pos_bytes = 0 if pos is None else pos.numel() * pos.element_size()
-    bms, by = bound(0.0, 2 * elems + pos_bytes, flops_bf16=2.0 * matmul)
-    bf = torch.bfloat16
-    route = routes[bf]
+
+    def bounds(dtype):
+        nbytes = dtype.itemsize * elems + pos_bytes
+        return (route_bound(dtype, routes[dtype], 2.0 * matmul, nbytes),
+                route_bound(dtype, "simt", 2.0 * matmul, nbytes)[0])
+
+    (bms, by), cuda_core = bounds(main)
+    route = routes[main]
+    tag = str(main).removeprefix("torch.")
     msg = (f"[lm] flash {name} ({b}, {sq}, {cfg.n_heads}, {cfg.head_dim}) "
-           f"x ({b}, {t}, {cfg.n_kv_heads}, {cfg.head_dim}): route bf16 "
-           f"{route}, max abs err {errs[bf]!r}; kernel {ms[bf]:.4f} ms, "
-           f"plain {plain[bf]:.4f} ms, sdpa {lib[bf]:.4f} ms (vs plain max "
-           f"abs {lib_err:.3g}), bound {bms:.4f} ms ({by}), share "
-           f"{bms / ms[bf]:.3f}; launches {launches}")
+           f"x ({b}, {t}, {cfg.n_kv_heads}, {cfg.head_dim}): route {tag} "
+           f"{route}, max abs err {errs[main]!r}; kernel {ms[main]:.4f} ms")
+    if main in simt:
+        msg += (f", simt kernel {simt[main][1]:.4f} ms (max abs err "
+                f"{simt[main][0]!r})")
+    msg += (f", plain {plain[main]:.4f} ms, sdpa {lib[main]:.4f} ms (vs "
+            f"plain max abs {lib_errs[main]:.3g}), bound {bms:.4f} ms "
+            f"({by}), share {bms / ms[main]:.3f}")
+    if main in simt:
+        msg += f", CUDA-core float32 bound {cuda_core:.4f} ms"
+    msg += f"; launches {launches}"
     row = dict(
         name=f"flash_attention ({name})", route="cuda",
         source=FLASH_SOURCES[route],
         replaces="src/repro/kernels/flash_attention.py:77",
-        launches=launches, max_abs_err=errs[bf], ms=ms[bf],
-        plain_ms=plain[bf], bound_ms=bms, bound_by=by, library_ms=lib[bf],
-        library_max_abs_err=lib_err, kernel_route=route,
+        launches=launches, max_abs_err=errs[main], ms=ms[main],
+        plain_ms=plain[main], bound_ms=bms, bound_by=by,
+        library_ms=lib[main], library_max_abs_err=lib_errs[main],
+        kernel_route=route,
         shape=[b, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-        dtype="bfloat16", ok=True)
+        dtype=tag, ok=True)
+    if main in simt:
+        row.update(simt_ms=simt[main][1], simt_max_abs_err=simt[main][0],
+                   simt_source=FLASH_SOURCES["simt"],
+                   cuda_core_bound_ms=cuda_core)
     f32 = torch.float32
-    if f32 in dtypes:
-        # float32 runs on the CUDA cores: every product at their rate
-        bms32, by32 = bound(2.0 * matmul, 4 * elems + pos_bytes)
+    if main != f32 and f32 in dtypes:
+        (bms32, by32), cuda_core32 = bounds(f32)
         msg += (f"; f32 route {routes[f32]}, max abs err {errs[f32]!r}, "
-                f"kernel {ms[f32]:.4f} ms, plain {plain[f32]:.4f} ms, sdpa "
-                f"{lib[f32]:.4f} ms, bound {bms32:.4f} ms ({by32}), share "
+                f"kernel {ms[f32]:.4f} ms")
+        if f32 in simt:
+            msg += (f", simt kernel {simt[f32][1]:.4f} ms (max abs err "
+                    f"{simt[f32][0]!r})")
+        msg += (f", plain {plain[f32]:.4f} ms, sdpa {lib[f32]:.4f} ms, "
+                f"bound {bms32:.4f} ms ({by32}), share "
                 f"{bms32 / ms[f32]:.3f}")
+        if f32 in simt:
+            msg += f", CUDA-core float32 bound {cuda_core32:.4f} ms"
         row.update(max_abs_err_f32=errs[f32], f32_ms=ms[f32],
                    f32_plain_ms=plain[f32], f32_bound_ms=bms32,
                    f32_bound_by=by32, f32_library_ms=lib[f32],
                    f32_route=routes[f32],
-                   f32_source=FLASH_SOURCES[routes[f32]])
+                   f32_source=FLASH_SOURCES[routes[f32]],
+                   f32_cuda_core_bound_ms=cuda_core32)
+        if f32 in simt:
+            row.update(f32_simt_ms=simt[f32][1],
+                       f32_simt_max_abs_err=simt[f32][0])
     log(msg)
     return row
 
@@ -2874,6 +2957,88 @@ def train_main(fwd_tally, bwd_tally) -> dict:
                 peak=peak, launches=launches)
 
 
+def hundred_m_config():
+    """examples/train_lm.py's ``hundred_m_config``, built as it builds it:
+    qwen3-0.6b with 12 layers, d_model 640, 10 heads / 5 KV heads of 64,
+    d_ff 1792, vocab 32,768, float32."""
+    return dataclasses.replace(
+        get_config(LM_ARCH), name=HUNDRED_M, n_layers=12, d_model=640,
+        n_heads=10, n_kv_heads=5, head_dim=64, d_ff=1792, vocab=32768,
+        param_dtype="float32")
+
+
+def train_100m(fwd_tally, bwd_tally) -> dict:
+    """examples/train_lm.py's float32 path on the card: ``hundred_m_config``
+    (seeded weights made on the card by ``train``), TRAIN_100M_STEPS steps
+    of ``repro_torch.train.train`` on TokenPipeline batches of
+    TRAIN_100M_SHAPE, AdamW at the example's lr 3e-4 (TRAIN_OPT), remat on,
+    no checkpoints. Counts zeroed just before, read just after: every
+    forward flash call on the float32 tensor-core route (tc32), two a layer
+    a step, and every backward call on tc32, one a layer a step; none on a
+    CUDA-core or bf16 route. The loss falls (the example's own assert)."""
+    cfg = hundred_m_config()
+    b, s = TRAIN_100M_SHAPE
+    steps = TRAIN_100M_STEPS
+    tcfg = TrainConfig(steps=steps, log_every=1, checkpoint_every=steps,
+                       global_batch=b, seq_len=s,
+                       optimizer=AdamWConfig(**TRAIN_OPT))
+    stamps = []
+
+    def on_step(step, metrics):
+        stamps.append((time.perf_counter(), metrics))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # --- the main path: counts zeroed just before, read just after -------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with tallying_flash(fwd_tally), tallying_flash_bwd(bwd_tally):
+        out = train(cfg, tcfg, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches_snapshot()
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["loss_history"]
+    n = cfg.n_layers
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"[train] {HUNDRED_M} losses {losses}")
+    check(losses[-1] < losses[0], f"[train] {HUNDRED_M} loss did not fall: "
+          f"{losses}")
+    check(launches["flash_attention"] == launches["flash_prefill_tc32"]
+          == 2 * n * steps and launches["flash_simt"] == 0
+          and launches["flash_prefill_tc"] == 0
+          and launches["flash_decode_split"] == 0,
+          f"[train] {HUNDRED_M} forward flash calls: {2 * n * steps} float32 "
+          f"tensor-core calls expected, got {launches}")
+    check(launches["flash_attention_bwd"] == launches["flash_bwd_tc32"]
+          == n * steps and launches["flash_bwd_simt"] == 0
+          and launches["flash_bwd_tc"] == 0,
+          f"[train] {HUNDRED_M} backward calls: {n} x {steps} on the float32 "
+          f"tensor-core route expected, got {launches}")
+    check(all(launches[k] == 0 for k in JOIN_KERNELS), "join kernels ran")
+    ends = np.array([t for t, _ in stamps])
+    steps_ms = np.diff(ends) * 1e3
+    warm_ms = float(np.median(steps_ms[1:]))
+    tokens_s = b * s / (warm_ms / 1e3)
+    log(f"[train] {HUNDRED_M} (examples/train_lm.py's float32 model, "
+        f"{cfg.param_count()} params): {n} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {steps} steps of {TRAIN_100M_SHAPE} tokens, remat "
+        f"on, AdamW {TRAIN_OPT}: losses {losses!r}")
+    log(f"[train] {HUNDRED_M} first step {(ends[0] - t0) * 1e3:.1f} ms; warm "
+        f"step median {warm_ms:.2f} ms (steps "
+        f"{np.round(steps_ms, 2).tolist()} ms), {tokens_s:.1f} tokens/s; "
+        f"peak memory allocated {peak / 2 ** 30:.2f} GiB; run {wall:.2f} s")
+    log(f"[train] {HUNDRED_M} launches: forward flash "
+        f"{launches['flash_attention']} (tc32 "
+        f"{launches['flash_prefill_tc32']}), backward "
+        f"{launches['flash_attention_bwd']} (tc32 "
+        f"{launches['flash_bwd_tc32']}, simt {launches['flash_bwd_simt']})")
+    return dict(cfg=cfg, losses=losses, warm_ms=warm_ms, tokens_s=tokens_s,
+                peak=peak, launches=launches)
+
+
 def step_with_grads(bundle, params, batch, lr: float, grad_transform=None,
                     state=None):
     """One ``make_train_step`` → (params, state, metrics, the gradients
@@ -3163,16 +3328,19 @@ def bwd_errors(what: str, dtype, got, want) -> tuple[float, float, float]:
 
 
 def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
-                      dtypes=(torch.bfloat16,)) -> dict:
+                      dtypes=(torch.bfloat16,),
+                      main=torch.bfloat16) -> dict:
     """One backward shape of the paths: the kernel of the route
     ``bwd_launch_plan`` picks against ``ref.gqa_attention_bwd`` on the same
-    inputs (the three limits), in each of ``dtypes``; timed (CUDA graphs)
-    beside the plain version and SDPA's backward (its forward + backward
-    less its forward), and the bound: five products (S, dP, dV, dK, dQ) at
-    the bf16 tensor-core rate for bf16 (the CUDA cores' for float32),
-    against each input read once (q, k, v, O, dO) and each gradient written
-    once. In bf16 the CUDA-core backward (``simt``) is held to the same
-    limits and timed beside the tensor-core one."""
+    inputs (the three limits), in each of ``dtypes`` (``main`` the path's;
+    a bf16 row's float32 call is logged beside it, ``f32_*``); timed (CUDA
+    graphs) beside the plain version and SDPA's backward (its forward +
+    backward less its forward), and the bound: five products (S, dP, dV,
+    dK, dQ) at the route's rate (``route_bound``), against each input read
+    once (q, k, v, O, dO) and each gradient written once. Where the route is
+    a tensor-core one, the CUDA-core backward (``simt``) is held to the
+    same limits and timed beside it; a float32 row gives the CUDA cores'
+    bound too."""
     t_row = time.perf_counter()
     _, b, sq, t, h, hkv, d, causal, _ = key
     kw = dict(causal=causal, window=window)
@@ -3238,11 +3406,17 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
     matmul = 2.0 * b * h * d * visible
     q_elems, kv_elems = b * sq * h * d, b * hkv * d
     elems = 4 * q_elems + 2 * kv_elems * keys + 2 * kv_elems * t
-    bf = torch.bfloat16
-    bms, by = bound(0.0, 2 * elems, flops_bf16=5 * matmul)
-    st, route = stats[bf], routes[bf]
+
+    def bounds(dtype):
+        nbytes = dtype.itemsize * elems
+        return (route_bound(dtype, routes[dtype], 5 * matmul, nbytes),
+                route_bound(dtype, "simt", 5 * matmul, nbytes)[0])
+
+    (bms, by), cuda_core = bounds(main)
+    st, route = stats[main], routes[main]
+    tag = str(main).removeprefix("torch.")
     msg = (f"[train] flash backward {name} ({b}, {sq}, {h}, {d}) x ({b}, "
-           f"{t}, {hkv}, {d}): bf16 route {route}, max abs err "
+           f"{t}, {hkv}, {d}): {tag} route {route}, max abs err "
            f"{st['err']!r} (worst element {st['elem']:.3g} of its limit, "
            f"‖Δ‖/‖plain‖ {st['norm']:.3g}); kernel {st['ms']:.4f} ms")
     if st["simt"] is not None:
@@ -3253,7 +3427,10 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
             f"{st['lib']:.4f} ms (fwd+bwd {st['lib_both']:.4f}, fwd "
             f"{st['lib_fwd']:.4f}; grads vs plain max abs "
             f"{st['lib_err']:.3g}), bound {bms:.4f} ms ({by}), share "
-            f"{bms / st['ms']:.3f}; launches {launches}")
+            f"{bms / st['ms']:.3f}")
+    if main == torch.float32 and route != "simt":
+        msg += f", CUDA-core float32 bound {cuda_core:.4f} ms"
+    msg += f"; launches {launches}"
     t_row = time.perf_counter() - t_row
     row = dict(
         name=f"flash_attention backward ({name})", route="cuda",
@@ -3266,26 +3443,42 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
         elem_share_of_tol=st["elem"], norm_rel_err=st["norm"], ms=st["ms"],
         plain_ms=st["plain"], bound_ms=bms, bound_by=by,
         library_ms=st["lib"], library_max_abs_err=st["lib_err"],
-        shape=[b, sq, t, h, hkv, d], dtype="bfloat16", ok=True)
+        shape=[b, sq, t, h, hkv, d], dtype=tag, ok=True)
     if st["simt"] is not None:
         row.update(simt_ms=st["simt"]["ms"], simt_max_abs_err=st["simt"]["err"],
                    simt_elem_share_of_tol=st["simt"]["elem"],
                    simt_norm_rel_err=st["simt"]["norm"])
+    if main == torch.float32 and route != "simt":
+        row.update(cuda_core_bound_ms=cuda_core,
+                   simt_source=FLASH_BWD_SOURCES["simt"])
     f32 = torch.float32
-    if f32 in stats:
+    if main != f32 and f32 in stats:
         st = stats[f32]
-        bms32, by32 = bound(5 * matmul, 4 * elems)
+        (bms32, by32), cuda_core32 = bounds(f32)
         msg += (f"; f32 route {routes[f32]}, max abs err {st['err']!r} "
                 f"(worst element {st['elem']:.3g} of its limit, ‖Δ‖/‖plain‖ "
-                f"{st['norm']:.3g}), kernel {st['ms']:.4f} ms"
-                f", plain {st['plain']:.4f} ms, sdpa backward "
+                f"{st['norm']:.3g}), kernel {st['ms']:.4f} ms")
+        if st["simt"] is not None:
+            msg += (f", simt kernel {st['simt']['ms']:.4f} ms (worst element "
+                    f"{st['simt']['elem']:.3g}, ‖Δ‖/‖plain‖ "
+                    f"{st['simt']['norm']:.3g})")
+        msg += (f", plain {st['plain']:.4f} ms, sdpa backward "
                 f"{st['lib']:.4f} ms, bound {bms32:.4f} ms ({by32}), share "
-                f"{bms32 / st['ms']:.3f}")
+                f"{bms32 / st['ms']:.3f}, CUDA-core float32 bound "
+                f"{cuda_core32:.4f} ms")
         row.update(max_abs_err_f32=st["err"],
                    elem_share_of_tol_f32=st["elem"],
                    norm_rel_err_f32=st["norm"], f32_ms=st["ms"],
                    f32_plain_ms=st["plain"], f32_bound_ms=bms32,
-                   f32_bound_by=by32, f32_library_ms=st["lib"])
+                   f32_bound_by=by32, f32_library_ms=st["lib"],
+                   f32_route=routes[f32],
+                   f32_source=FLASH_BWD_SOURCES[routes[f32]],
+                   f32_cuda_core_bound_ms=cuda_core32)
+        if st["simt"] is not None:
+            row.update(f32_simt_ms=st["simt"]["ms"],
+                       f32_simt_max_abs_err=st["simt"]["err"],
+                       f32_simt_elem_share_of_tol=st["simt"]["elem"],
+                       f32_simt_norm_rel_err=st["simt"]["norm"])
     log(msg + f"; row {t_row:.1f} s")
     return row
 
@@ -3361,6 +3554,16 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
     t0 = time.perf_counter()
     main = train_main(fwd_tally, bwd_tally)
     log(f"[train] main path {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ftally, btally = collections.Counter(), collections.Counter()
+    small = train_100m(ftally, btally)
+    windows = {key: (HUNDRED_M, small["cfg"].window) for key in btally}
+    fwd_arch = dict.fromkeys(fwd_tally, LM_ARCH)
+    fwd_arch.update(dict.fromkeys(ftally, HUNDRED_M))
+    fwd_tally.update(ftally)
+    bwd_tally.update(btally)
+    log(f"[train] {HUNDRED_M} path {time.perf_counter() - t1:.1f} s")
     if profile:
         torch.cuda.empty_cache()
         profile_train_step()
@@ -3377,8 +3580,6 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"[train] kill/resume and int8 {time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
-    windows = {}
-    fwd_arch = dict.fromkeys(fwd_tally, LM_ARCH)
     for arch, (layers, shape) in TRAIN_FAMILIES.items():
         t1 = time.perf_counter()
         ftally, btally = collections.Counter(), collections.Counter()
@@ -3399,19 +3600,20 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
         _, b, sq, t, h, hkv, d, causal, windowed = key
         kind = ("causal" if causal else "non-causal") + (
             f", window {window}" if windowed else "")
-        names[key] = (f"{arch.split('-')[0]} train ({b}, {sq}) x {t}, "
-                      f"H {h}/{hkv}, D {d}, {kind}",
-                      window if windowed else 0)
+        label = arch if arch == HUNDRED_M else arch.split("-")[0]
+        names[key] = (f"{label} train ({b}, {sq}) x {t}, H {h}/{hkv}, "
+                      f"D {d}, {kind}", window if windowed else 0)
     rows = []
     for key in sorted(bwd_tally, key=str):
         name, window = names[key]
         qwen_main = key[1:7] == (*TRAIN_SHAPE, TRAIN_SHAPE[1],
                                  qwen.n_heads, qwen.n_kv_heads,
                                  qwen.head_dim)
+        main_dtype = getattr(torch, key[0])
         rows.append(attention_bwd_row(
             name, key, window, bwd_tally[key],
             (torch.bfloat16, torch.float32) if qwen_main
-            else (torch.bfloat16,)))
+            else (main_dtype,), main_dtype))
     main_rows = [r for r in rows
                  if r["launches"] == main["launches"]["flash_attention_bwd"]]
     check(main_rows, "[train] no backward row for the main path")
@@ -3427,10 +3629,12 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
         if (route, b, sq, t, h, hkv, d) in covered:
             continue
         arch = fwd_arch[key]
-        cfg = family_config(arch, TRAIN_FAMILIES.get(arch, (0,))[0])
+        cfg = (small["cfg"] if arch == HUNDRED_M else
+               family_config(arch, TRAIN_FAMILIES.get(arch, (0,))[0]))
         kw = dict(causal=causal, window=cfg.window if windowed else 0)
+        dtype = torch.float32 if route == "tc32" else torch.bfloat16
         rows.append(attention_row(f"{arch} train forward", cfg, sq, t, kw,
-                                  n, b, (torch.bfloat16,)))
+                                  n, b, (dtype,), dtype))
         covered.add((route, b, sq, t, h, hkv, d))
     log(f"[train] forward rows {time.perf_counter() - t1:.1f} s")
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")

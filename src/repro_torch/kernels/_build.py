@@ -123,6 +123,9 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
             i32, ptr]
         lib.flash_prefill_sm90_launch.restype = i32
+        lib.flash_prefill_sm90_f32_launch.argtypes = \
+            lib.flash_prefill_sm90_launch.argtypes
+        lib.flash_prefill_sm90_f32_launch.restype = i32
         lib.flash_decode_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
             i32, i32, i32, ptr, ptr, i32, ptr]
@@ -135,5 +138,8 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, strides, *shape,
             ctypes.c_float, i32, ptr, ptr, ptr, ptr, i32, ptr]
         lib.flash_bwd_sm90_launch.restype = i32
+        lib.flash_bwd_sm90_f32_launch.argtypes = \
+            lib.flash_bwd_sm90_launch.argtypes
+        lib.flash_bwd_sm90_f32_launch.restype = i32
         _lib = lib
         return lib

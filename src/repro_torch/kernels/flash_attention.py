@@ -1,6 +1,6 @@
 """Launch of the grouped-head flash-attention CUDA kernels, which replace
 the JAX package's Pallas ``flash_attention`` and compute the model's
-attention region (``gqa_scores_chunked``). Three routes, chosen once per
+attention region (``gqa_scores_chunked``). Four routes, chosen once per
 call by ``launch_plan`` from dtype and shape alone:
 
 * ``"split"`` — decode, Sq·g ≤ 16 query rows, bf16 or float32:
@@ -8,14 +8,17 @@ call by ``launch_plan`` from dtype and shape alone:
   split into float32 scratch allocated here, then a combine);
 * ``"tc"`` — bf16 prefill (Sq·g > 16) at head dims 64, 128 and 256:
   ``csrc/flash_prefill_sm90.cu``, ``wgmma`` on the tensor cores fed by TMA;
-* ``"simt"`` — the rest (float32 prefill, bf16 prefill at other head
-  dims): ``csrc/flash_attention.cu`` on the CUDA cores.
+* ``"tc32"`` — float32 prefill at head dims 64, 128 and 256:
+  ``csrc/flash_prefill_sm90_f32.cu``, TF32 ``wgmma`` with every float32
+  operand split into two TF32 halves (3×TF32) and partial sums, fed by TMA;
+* ``"simt"`` — the rest (prefill at other head dims, either dtype):
+  ``csrc/flash_attention.cu`` on the CUDA cores.
 
 There is no fallback between routes: a refused launch raises. Callers go
 through ``ops``, which checks inputs, dispatches by device and counts
 launches.
 
-The gradient, ``flash_attention_bwd``, takes one of two routes, chosen
+The gradient, ``flash_attention_bwd``, takes one of three routes, chosen
 once per call by ``bwd_launch_plan``:
 
 * ``"tc"`` — bf16 at head dims 64, 128 and 256:
@@ -24,10 +27,15 @@ once per call by ``bwd_launch_plan``:
   statistics and dO·O; dK and dV per key tile, its row walk split where
   the key tiles alone would not fill the card; dQ per row tile), and a
   fourth that sums the splits' float32 partials in a fixed order;
-* ``"simt"`` — the rest (float32, bf16 at other head dims):
+* ``"tc32"`` — float32 at head dims 64, 128 and 256:
+  ``csrc/flash_backward_sm90_f32.cu``, TF32 ``wgmma`` at 3×TF32 with
+  partial sums; the same launches (statistics; dK and dV per key tile,
+  split where the first route splits; dQ per row tile; the sum of the
+  splits);
+* ``"simt"`` — the rest (either dtype at other head dims):
   ``csrc/flash_backward.cu`` on the CUDA cores, the same three launches.
 
-Neither uses atomics, so two calls give the same bits. The gradient has no
+None uses atomics, so two calls give the same bits. The gradient has no
 TPU counterpart: the JAX package differentiates its plain attention."""
 from __future__ import annotations
 
@@ -40,12 +48,16 @@ from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128, 256)   # flash_prefill_sm90.cu's instantiations
+TC_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernels' instantiations
 DECODE_MAX_ROWS = 16            # Sq·g at or below which decode splits KV
 SPLIT_KEYS = 64                 # keys per split (kSplit in flash_decode.cu)
-ROUTE_COUNTERS = {"tc": "flash_prefill_tc", "split": "flash_decode_split",
-                  "simt": "flash_simt"}
-BWD_ROUTE_COUNTERS = {"tc": "flash_bwd_tc", "simt": "flash_bwd_simt"}
+ROUTE_COUNTERS = {"tc": "flash_prefill_tc", "tc32": "flash_prefill_tc32",
+                  "split": "flash_decode_split", "simt": "flash_simt"}
+BWD_ROUTE_COUNTERS = {"tc": "flash_bwd_tc", "tc32": "flash_bwd_tc32",
+                      "simt": "flash_bwd_simt"}
+# the tensor-core route of each dtype and the element alignment it reads
+# strides at (16 bytes: TMA's rule)
+TC_ROUTES = {torch.bfloat16: ("tc", 8), torch.float32: ("tc32", 4)}
 BWD_TILE = 64       # rows and keys a tile in flash_backward_sm90.cu (kTile)
 SM_COUNT = 132      # an H100 SXM's SMs: the dK/dV grid the split aims for
 
@@ -73,8 +85,8 @@ def launch_plan(b: int, sq: int, t: int, h: int, hkv: int, d: int,
         n = -(-t // SPLIT_KEYS)
         return LaunchPlan("split", 16 // dtype.itemsize, n,
                           (b, hkv, n, rows, 2), (b, hkv, n, rows, d))
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
-        return LaunchPlan("tc", 8)
+    if d in TC_HEAD_DIMS:
+        return LaunchPlan(*TC_ROUTES[dtype])
     return LaunchPlan("simt", 4)
 
 
@@ -99,19 +111,30 @@ def bwd_launch_plan(b: int, sq: int, t: int, h: int, hkv: int, d: int,
                     dtype: torch.dtype) -> BwdLaunchPlan:
     """The backward's route and launch sizes for q (b, sq, h, d) against
     k/v (b, t, hkv, d) of ``dtype``; a pure function of ints and a dtype.
-    On the ``tc`` route, where the dK/dV grid (one block per 64-key tile,
-    KV head and batch) is under ``SM_COUNT`` blocks, each key tile's row
-    walk is split into the fewest parts that bring the grid to
-    ``SM_COUNT``, and at most one part per 64-row tile."""
+    On the tensor-core routes (``tc``, ``tc32``), where the dK/dV grid (one
+    block per 64-key tile, KV head and batch) is under ``SM_COUNT`` blocks,
+    each key tile's row walk is split into the fewest parts that bring the
+    grid to ``SM_COUNT``, and at most one part per 64-row tile."""
     rows = sq * (h // hkv)
     stats, delta = (b, hkv, rows, 2), (b, hkv, rows)
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+    if d in TC_HEAD_DIMS:
         blocks = b * hkv * -(-t // BWD_TILE)
         n = 1 if blocks >= SM_COUNT else min(-(-SM_COUNT // blocks),
                                              -(-rows // BWD_TILE))
-        return BwdLaunchPlan("tc", 8, n, stats, delta,
+        return BwdLaunchPlan(*TC_ROUTES[dtype], n, stats, delta,
                              (n, b, t, hkv, d) if n > 1 else ())
     return BwdLaunchPlan("simt", 4, 1, stats, delta)
+
+
+def _check_route(route: str, q: torch.Tensor) -> None:
+    """A tensor-core route takes only its dtype at ``TC_HEAD_DIMS``: raise
+    before any launch otherwise."""
+    takes = {r: dt for dt, (r, _) in TC_ROUTES.items()}
+    if route in takes and (q.dtype != takes[route]
+                           or q.shape[-1] not in TC_HEAD_DIMS):
+        raise ValueError(f"the {route} route takes {takes[route]} at head "
+                         f"dims {TC_HEAD_DIMS}, got {q.dtype} at "
+                         f"{q.shape[-1]}")
 
 
 def _aligned(x: torch.Tensor, elems: int) -> bool:
@@ -139,6 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA tensor or None → (B, Sq, H, D) contiguous in q's dtype, launched on
     the current stream by ``plan``'s route. A tensor whose strides the
     route cannot read in place is copied to contiguous first."""
+    _check_route(plan.route, q)
     q, k, v = (x if _aligned(x, plan.align) else x.contiguous()
                for x in (q, k, v))
     b, sq, h, d = q.shape
@@ -163,6 +187,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      stream)
     elif plan.route == "tc":
         rc = lib.flash_prefill_sm90_launch(*head, device, stream)
+    elif plan.route == "tc32":
+        rc = lib.flash_prefill_sm90_f32_launch(*head, device, stream)
     else:
         rc = lib.flash_simt_launch(*head, bf16, device, stream)
     if rc != 0:
@@ -185,11 +211,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     current stream by ``plan``'s route. The float32 scratch (each row's
     softmax max, sum and dO·O; the split walk's partial dK and dV) is
     allocated here."""
-    if plan.route == "tc" and (q.dtype != torch.bfloat16
-                               or q.shape[-1] not in TC_HEAD_DIMS):
-        raise ValueError(f"the tc backward takes bf16 at head dims "
-                         f"{TC_HEAD_DIMS}, got {q.dtype} at "
-                         f"{q.shape[-1]}")
+    _check_route(plan.route, q)
     q, k, v = (x if _aligned(x, plan.align) else _dense(x, plan.align)
                for x in (q, k, v))
     out = _dense(out.to(q.dtype), plan.align)
@@ -213,13 +235,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device = q.device.index
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.load()
-    if plan.route == "tc":
+    if plan.route in ("tc", "tc32"):
         parts = (torch.empty((2, *plan.part_shape), dtype=torch.float32,
                              device=q.device) if plan.part_shape else None)
-        rc = lib.flash_bwd_sm90_launch(
-            *head, plan.n_split, stats.data_ptr(), delta.data_ptr(),
-            None if parts is None else parts[0].data_ptr(),
-            None if parts is None else parts[1].data_ptr(), device, stream)
+        fn = (lib.flash_bwd_sm90_launch if plan.route == "tc"
+              else lib.flash_bwd_sm90_f32_launch)
+        rc = fn(*head, plan.n_split, stats.data_ptr(), delta.data_ptr(),
+                None if parts is None else parts[0].data_ptr(),
+                None if parts is None else parts[1].data_ptr(), device,
+                stream)
     else:
         rc = lib.flash_bwd_launch(
             *head, int(q.dtype == torch.bfloat16), stats.data_ptr(),

@@ -291,7 +291,8 @@ def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
     """The gradient of ``gqa_attention``: its operands, its output ``out``
     and the output's gradient ``dout`` → (dq, dk, dv) in q's dtype. On
     CUDA the route ``bwd_launch_plan`` picks (``csrc/flash_backward_sm90.cu``
-    for bf16 at D 64/128/256, ``csrc/flash_backward.cu`` otherwise),
+    for bf16 and ``csrc/flash_backward_sm90_f32.cu`` for float32 at D
+    64/128/256, ``csrc/flash_backward.cu`` otherwise),
     counted once a call under ``flash_attention_bwd`` and once under its
     route; on the CPU its plain version, ``ref.gqa_attention_bwd``."""
     b, sq, h, d = q.shape

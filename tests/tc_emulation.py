@@ -1,9 +1,10 @@
 """The tensor-core kernels' arithmetic, emulated in torch on the CPU:
 3×TF32 products of float32 operands with per-chunk partial sums that the
-tensor cores round toward zero (``csrc/l2_sm90.cuh``), and float32 FMA
-chains in k order, and data that puts the assign kernel's re-check to
-the test. Shared by ``test_torch_verify_tc.py``,
-``test_torch_assign_tc.py`` and ``test_torch_cuda.py`` (so it imports
+tensor cores round toward zero (``csrc/l2_sm90.cuh``, and the float32
+attention kernels' ``csrc/flash_sm90_f32.cuh``), and float32 FMA chains in
+k order, and data that puts the assign kernel's re-check to the test.
+Shared by ``test_torch_verify_tc.py``, ``test_torch_assign_tc.py``,
+``test_torch_flash_f32_tc.py`` and ``test_torch_cuda.py`` (so it imports
 nothing of the JAX package)."""
 import numpy as np
 import torch
@@ -60,6 +61,44 @@ def tc_emulation(a: torch.Tensor, b: torch.Tensor, eps2: float):
     d2 = torch.clamp_min((fma_dot(a, a)[..., :, None]
                           + fma_dot(b, b)[..., None, :]) - 2.0 * acc, 0.0)
     return d2, d2 <= eps2
+
+
+def tc3_partials(a: torch.Tensor, b: torch.Tensor, chunk: int = 32):
+    """a (..., M, K) @ b (..., K, N) of float32 as the float32 attention
+    kernels take it (``csrc/flash_sm90_f32.cuh``): a = a_hi + a_lo and b
+    likewise, each half rounded to TF32; K in chunks of ``chunk``, each
+    chunk's products into a fresh float32 partial, per 8-deep k step
+    a_lo·b_hi and a_hi·b_lo (k step by k step), then a_hi·b_hi, each
+    step's products and the partial summed exactly (float64) and rounded
+    toward zero, as the tensor cores do. → the chunks' partials in K order
+    (``chunk`` ≥ K: one accumulator over the whole walk)."""
+    def split(x):
+        hi = tf32_rna(x)
+        return hi, tf32_rna(x - hi)
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a.float()), split(b.float())
+    out = []
+    for c0 in range(0, a.shape[-1], chunk):
+        steps = range(c0, min(c0 + chunk, a.shape[-1]), 8)
+        order = [(k0, x, y) for k0 in steps
+                 for x, y in ((a_lo, b_hi), (a_hi, b_lo))]
+        order += [(k0, a_hi, b_hi) for k0 in steps]
+        part = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+        for k0, x, y in order:
+            p = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+            part = round_toward_zero(part + p).double()
+        out.append(part.float())
+    return out
+
+
+def tc3_matmul(a: torch.Tensor, b: torch.Tensor, chunk: int = 32):
+    """``tc3_partials`` added in K order into a float32 total (round to
+    nearest), as the kernels add each partial."""
+    parts = tc3_partials(a, b, chunk)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
 
 
 def fma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -135,14 +135,15 @@ def test_gqa_attention_rejects_mismatched_heads():
     ((4, 1, 512, 16, 8, 128), torch.bfloat16, "split", 8),   # qwen3 decode
     ((4, 1, 512, 16, 8, 128), torch.float32, "split", 8),
     ((4, 2048, 2048, 16, 8, 128), torch.bfloat16, "tc", 0),  # qwen3 prefill
-    ((4, 2048, 2048, 16, 8, 128), torch.float32, "simt", 0),
+    ((4, 2048, 2048, 16, 8, 128), torch.float32, "tc32", 0),
     ((1, 16, 100, 4, 4, 64), torch.bfloat16, "split", 2),    # Sq·g = 16
     ((1, 17, 100, 4, 4, 64), torch.bfloat16, "tc", 0),       # Sq·g = 17
-    ((1, 17, 100, 4, 4, 64), torch.float32, "simt", 0),
+    ((1, 17, 100, 4, 4, 64), torch.float32, "tc32", 0),
     ((1, 8, 100, 4, 2, 128), torch.bfloat16, "split", 2),
     ((1, 9, 100, 4, 2, 128), torch.bfloat16, "tc", 0),
     ((2, 40, 64, 12, 2, 256), torch.bfloat16, "tc", 0),      # g = 6
     ((2, 40, 64, 12, 2, 32), torch.bfloat16, "simt", 0),     # D not 64/128/256
+    ((2, 40, 64, 12, 2, 32), torch.float32, "simt", 0),
     ((2, 1, 64, 8, 1, 128), torch.bfloat16, "split", 1),
     ((2, 1, 65, 8, 1, 128), torch.bfloat16, "split", 2),
     ((2, 2, 4096, 16, 2, 96), torch.float32, "split", 64),

@@ -703,21 +703,46 @@ def test_flash_kernel_matches_plain(cuda, case, g, dtype, d):
     _check_flash(out, q, k, v, kw)
 
 
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 6])
-@pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_tc_route_matches_plain(cuda, case, g, d):
-    """Every case through the tensor-core kernel in bf16, whatever route
-    launch_plan would pick for it (decode shapes included); g = 3 and 6 do
-    not divide the 128-row tile, so Q takes the plain-load path."""
-    q, k, v, kw = _flash_inputs(cuda, case, g, torch.bfloat16, d)
+def _forced(q, k, v, kw, plan):
     pos = kw.get("kv_positions")
-    out = flash.flash_attention(
+    return flash.flash_attention(
         q, k, v, causal=kw["causal"], window=kw["window"],
-        q_offset=kw["q_offset"], scale=d ** -0.5,
-        kv_positions=None if pos is None else pos.to(torch.int32),
-        plan=flash.LaunchPlan("tc", 8))
+        q_offset=kw["q_offset"], scale=q.shape[-1] ** -0.5,
+        kv_positions=None if pos is None else pos.to(torch.int32), plan=plan)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 6, 10])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_tc_route_matches_plain(cuda, case, g, d, dtype):
+    """Every case through the tensor-core kernel of its dtype (tc for
+    bf16, tc32 for float32), whatever route launch_plan would pick for it
+    (decode shapes included); g = 3, 6 and 10 do not divide the block's
+    rows, so Q takes the plain-load path. float32 is also held to the
+    CUDA-core kernel on the same inputs, within the same limit."""
+    q, k, v, kw = _flash_inputs(cuda, case, g, dtype, d)
+    out = _forced(q, k, v, kw, flash.LaunchPlan(*flash.TC_ROUTES[dtype]))
     _check_flash(out, q, k, v, kw)
+    if dtype == torch.float32:
+        simt = _forced(q, k, v, kw, flash.LaunchPlan("simt", 4))
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), simt.cpu().numpy(),
+                                   **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_tc32_is_deterministic(cuda, d):
+    """float32 prefill at D 64/128/256 takes tc32; two calls give the same
+    bits."""
+    q, k, v, kw = _flash_inputs(cuda, "prefill_ragged", 2, torch.float32, d)
+    assert _route(q, k) == "tc32"
+    ops.reset_launches()
+    a = ops.gqa_attention(q, k, v, **kw)
+    b = ops.gqa_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_prefill_tc32"] == 2
+    assert torch.equal(a, b)
 
 
 SPLIT_CASES = [(c, g) for c in sorted(FLASH_CASES) for g in (1, 2, 4, 8)
@@ -738,7 +763,8 @@ def test_flash_split_route_matches_plain(cuda, case, g, dtype, d):
 @pytest.mark.parametrize("sq,g", [(16, 1), (8, 2), (17, 1), (9, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_route_boundary(cuda, sq, g, dtype):
-    """Sq·g = 16 splits KV; 17 takes the prefill kernel of its dtype."""
+    """Sq·g = 16 splits KV; 17 takes the prefill kernel of its dtype (at D
+    128 the tensor-core one: tc in bf16, tc32 in float32)."""
     gen = torch.Generator(device=cuda).manual_seed(sq * g)
     q = torch.randn(2, sq, 2 * g, 128, device=cuda, generator=gen).to(dtype)
     k = torch.randn(2, 80, 2, 128, device=cuda, generator=gen).to(dtype)
@@ -747,7 +773,7 @@ def test_flash_route_boundary(cuda, sq, g, dtype):
     ops.reset_launches()
     out = ops.gqa_attention(q, k, v, **kw)
     want_route = ("split" if sq * g <= 16 else
-                  "tc" if dtype == torch.bfloat16 else "simt")
+                  "tc" if dtype == torch.bfloat16 else "tc32")
     assert _route(q, k) == want_route
     _assert_one_launch(want_route)
     _check_flash(out, q, k, v, kw)
@@ -831,6 +857,36 @@ def test_flash_kernel_unaligned_strides(cuda):
     want = ref.gqa_attention(q, k, k, causal=True)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                **FLASH_TOL[torch.float32])
+
+
+def test_flash_tc32_unaligned_strides(cuda):
+    """Operands the float32 tensor-core routes cannot read through TMA (a
+    row stride not a multiple of 4 elements, a base address off by 2) are
+    copied to dense first, forward and backward: the result is the one of
+    the dense copies, bit for bit, and within the limits of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    big = torch.randn(2, 70, 4, 66, device=cuda, generator=gen)
+    q = big[..., :64]                   # row stride 66
+    k = big[:, :, :2, 2:]               # base address off by 2 elements
+    v = big[:, :, 2:, 1:65]
+    kw = dict(causal=True)
+    assert _route(q, k) == "tc32" and _bwd_route(q, k) == "tc32"
+    ops.reset_launches()
+    out = ops.gqa_attention(q, k, v, **kw)
+    dense = [x.contiguous() for x in (q, k, v)]
+    again = ops.gqa_attention(*dense, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_prefill_tc32"] == 2
+    assert torch.equal(out, again)
+    _check_flash(out, q, k, v, kw)
+    dout = torch.randn(out.shape, device=cuda, generator=gen)
+    got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
+    want = ops.gqa_attention_bwd(*dense, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_bwd_tc32"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    _check_bwd(got, q, k, v, out, dout, dict(kw, window=0, q_offset=0))
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
@@ -986,8 +1042,9 @@ def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
-# flash attention backward (csrc/flash_backward_sm90.cu for bf16 at D 64,
-# 128 and 256, csrc/flash_backward.cu otherwise)
+# flash attention backward (csrc/flash_backward_sm90.cu for bf16 and
+# csrc/flash_backward_sm90_f32.cu for float32 at D 64, 128 and 256,
+# csrc/flash_backward.cu otherwise)
 # ---------------------------------------------------------------------------
 # Three limits a gradient, each must hold. (1) max |kernel − plain| ≤ tol ·
 # max |plain|: bf16 one rounding of each output in the kernel and in the
@@ -1051,12 +1108,12 @@ def _check_bwd(got, q, k, v, out, dout, kw, want=None):
 def test_flash_bwd_kernel_matches_plain(cuda, case, g, dtype, d):
     """Every mask kind (causal, non-causal cross Sq ≠ T, window, offset,
     rolling cache positions with empty slots), g 1 to 10, D 64 to 256:
-    one counted call on its route, the tensor-core kernel for bf16 (D 64,
-    128 and 256 all take it), the CUDA-core one for float32."""
+    one counted call on its route, the tensor-core kernel of its dtype (D
+    64, 128 and 256 all take it: tc for bf16, tc32 for float32)."""
     q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, dtype, d)
     ops.reset_launches()
     got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
-    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "tc32")
     assert ops.LAUNCHES["flash_attention"] == 0
     _check_bwd(got, q, k, v, out, dout, kw)
 
@@ -1076,46 +1133,52 @@ def test_flash_bwd_rows_with_no_visible_key(cuda, dtype):
     dout = dout.repeat(1, 3, 1, 1)
     ops.reset_launches()
     got = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
-    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "tc32")
     _check_bwd(got, q, k, v, out, dout, kw)
     assert got[0].abs().max().item() == 0.0
     assert got[2].abs().max().item() > 0.0
 
 
-def test_flash_bwd_is_deterministic(cuda):
-    """No atomics: two identical calls give the same bits."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two identical calls give the same bits (tc in bf16,
+    tc32 in float32)."""
     q, k, v, out, dout, kw = _bwd_inputs(cuda, "prefill_ragged", 10,
-                                         torch.bfloat16, 128)
+                                         dtype, 128)
+    route = flash.TC_ROUTES[dtype][0]
+    assert _bwd_route(q, k) == route
     ops.reset_launches()
     a = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     b = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_bwd_tc"] == 2
+    assert ops.LAUNCHES[flash.BWD_ROUTE_COUNTERS[route]] == 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("d,window", [(256, 100), (128, 0), (64, 0)])
-def test_flash_bwd_split_is_deterministic(cuda, d, window):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_split_is_deterministic(cuda, d, window, dtype):
     """One KV head at B 1 (recurrentgemma's kind, g 10): the dK/dV row walk
     is split and its float32 parts summed in a fixed order, so two calls
-    give the same bits, and the gradients hold the plain version's limits."""
+    give the same bits, and the gradients hold the plain version's limits;
+    the tc32 route splits as tc does."""
     b, s, hkv, g = 1, 300, 1, 10
-    plan = flash.bwd_launch_plan(b, s, s, hkv * g, hkv, d, torch.bfloat16)
-    assert plan.route == "tc" and plan.n_split > 1
+    plan = flash.bwd_launch_plan(b, s, s, hkv * g, hkv, d, dtype)
+    route = flash.TC_ROUTES[dtype][0]
+    assert plan.route == route and plan.n_split > 1
     gen = torch.Generator(device=cuda).manual_seed(d + window)
     q = torch.randn(b, s, hkv * g, d, device=cuda, generator=gen)
     k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=gen)
             for _ in range(2))
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     kw = dict(causal=True, window=window, q_offset=0)
     out = ref.gqa_attention(q, k, v, **kw)
-    dout = torch.randn(out.shape, device=cuda, generator=gen).to(
-        torch.bfloat16)
+    dout = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
     ops.reset_launches()
     first = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     again = ops.gqa_attention_bwd(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_bwd_tc"] == 2
+    assert ops.LAUNCHES[flash.BWD_ROUTE_COUNTERS[route]] == 2
     assert all(torch.equal(x, y) for x, y in zip(first, again))
     _check_bwd(first, q, k, v, out, dout, kw)
 
@@ -1125,13 +1188,15 @@ def test_flash_bwd_split_is_deterministic(cuda, d, window):
                                   "decode_empty_slots"])
 @pytest.mark.parametrize("g", [1, 2, 10])
 @pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_bwd_tc_matches_simt(cuda, case, g, d):
-    """The two routes' bf16 gradients on the same inputs, each route forced
-    by its plan, held to each other under the three limits."""
-    q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, torch.bfloat16, d)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_tc_matches_simt(cuda, case, g, d, dtype):
+    """The tensor-core route of each dtype (tc, tc32) against the CUDA-core
+    one on the same inputs, each route forced by its plan, held to each
+    other under the dtype's three limits."""
+    q, k, v, out, dout, kw = _bwd_inputs(cuda, case, g, dtype, d)
     b, sq, h, _ = q.shape
-    tc = flash.bwd_launch_plan(b, sq, k.shape[1], h, k.shape[2], d,
-                               torch.bfloat16)
+    tc = flash.bwd_launch_plan(b, sq, k.shape[1], h, k.shape[2], d, dtype)
+    assert tc.route == flash.TC_ROUTES[dtype][0]
     simt = flash.BwdLaunchPlan("simt", 4, 1, tc.stats_shape, tc.delta_shape)
     pos = kw.get("kv_positions")
     args = dict(causal=kw["causal"], window=kw["window"],
@@ -1154,7 +1219,7 @@ def test_flash_autograd_uses_both_kernels(cuda, dtype):
     assert out.requires_grad
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert ops.LAUNCHES["flash_attention"] == 1
-    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "simt")
+    _assert_one_bwd("tc" if dtype == torch.bfloat16 else "tc32")
     _check_bwd(grads, q.detach(), k.detach(), v.detach(), out.detach(),
                dout, kw)
     with torch.inference_mode():

@@ -230,7 +230,8 @@ def test_one_bf16_p_and_ds_miss_the_limits(product):
 
 @pytest.mark.parametrize("shape,dtype,route,n_split", [
     ((4, 2048, 2048, 16, 8, 128), torch.bfloat16, "tc", 1),    # qwen3 train
-    ((4, 2048, 2048, 16, 8, 128), torch.float32, "simt", 1),
+    ((4, 2048, 2048, 16, 8, 128), torch.float32, "tc32", 1),
+    ((1, 64, 64, 12, 12, 32), torch.float32, "simt", 1),       # D 32
     ((1, 512, 512, 10, 1, 256), torch.bfloat16, "tc", 17),     # recurrentgemma
     ((1, 512, 512, 16, 16, 128), torch.bfloat16, "tc", 2),     # olmoe
     ((1, 1500, 1500, 12, 12, 64), torch.bfloat16, "tc", 1),    # whisper enc
@@ -244,10 +245,10 @@ def test_one_bf16_p_and_ds_miss_the_limits(product):
     ((1, 1, 512, 8, 1, 128), torch.bfloat16, "tc", 1),         # one row
 ])
 def test_bwd_launch_plan(shape, dtype, route, n_split):
-    """The route by dtype and D; the split count: 1 where the dK/dV grid
-    (a block a 64-key tile) already has SM_COUNT blocks, else the fewest
-    parts that reach it (at Hkv 1 and B 1 too), never more parts than
-    64-row tiles; the scratch shapes."""
+    """The route by dtype and D (float32 at D 64/128/256 on tc32); the
+    split count: 1 where the dK/dV grid (a block a 64-key tile) already
+    has SM_COUNT blocks, else the fewest parts that reach it (at Hkv 1 and
+    B 1 too), never more parts than 64-row tiles; the scratch shapes."""
     b, sq, t, h, hkv, d = shape
     plan = flash.bwd_launch_plan(b, sq, t, h, hkv, d, dtype)
     assert (plan.route, plan.n_split) == (route, n_split)
