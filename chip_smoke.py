@@ -171,6 +171,27 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    beside it (the ``kernels`` line lists both routes); training's
    forward shapes that no ``[lm]`` row covers get forward rows (the 100M
    path's in float32, the CUDA-core forward timed beside them).
+10. ``[census]``: the census of one card (``repro_torch.launch.census``)
+   for qwen3-0.6b × train_4k, prefill_32k and decode_32k at the per-card
+   batch (one sequence; decode against a full 32,768-slot cache), and the
+   join superstep (``launch/census_join.py``: E 4,096, cap 1,024, d 128,
+   W 512) through ``verify_edges``; counts zeroed just before each, read
+   just after. Every record ``ok``; 0 < useful FLOP ratio ≤ 1; 0 < work
+   FLOPs (attention over the pairs its mask lets through) ≤ the dense
+   count; the measured step no faster than its compute term (priced from
+   the work count) or than one pass over its live arguments (weights,
+   optimizer state, caches) at 3.35 TB/s;
+   every flash forward, backward and verify launch that ``op_cost``
+   counted, times the steps run, equal to the launch counters, each on
+   the ``tc`` or ``split`` route. The smoke config's train, prefill and
+   decode steps count the same FLOPs on the card as on the port's CPU
+   path. Each record's line and the four's roofline table are logged.
+   Then a kernel row for each new shape: the (1, 32,768) prefill (held on
+   its last 256 query rows against the plain version over all keys), the
+   T 32,768 decode (whole), the (1, 4,096) train forward and backward
+   (the backward under its three limits) and the superstep's verify (held
+   on 32 lanes), each timed beside its plain version, SDPA or
+   ``torch.cdist`` and its bound (``roofline.kernel_cost``).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
@@ -204,7 +225,8 @@ import torch  # noqa: E402
 from repro_torch.checkpoint import list_checkpoints  # noqa: E402
 from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
                                   HostVerifyEngine)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.core import center_index  # noqa: E402
 from repro_torch.core import distributed as dist_mod  # noqa: E402
@@ -219,7 +241,15 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
+from repro_torch.launch import census as census_mod  # noqa: E402
+from repro_torch.launch import census_join  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.op_cost import OpCost  # noqa: E402
+from repro_torch.launch.roofline import (PEAK_BYTES,  # noqa: E402
+                                         attention_counts, kernel_bound,
+                                         kernel_cost)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.steps import prepare_cell  # noqa: E402
 from repro_torch.models import build_model, encdec  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -236,11 +266,6 @@ from repro_torch.train import (AdamW, AdamWConfig, TrainConfig,  # noqa: E402
 from repro_torch.train import train_loop as train_loop_mod  # noqa: E402
 from repro_torch.train.optimizer import global_norm  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
-PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
-PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense
-PEAK_BF16_FLOPS = 989e12   # bf16 on the tensor cores, dense
-PEAK_BYTES = 3.35e12       # HBM3
 D2_RTOL, D2_ATOL = 1e-4, 1e-3   # tests/test_kernels.py's d² tolerance
 MASK_BAND = 1e-2                # mask may differ only this close to ε²
 DIM = 128
@@ -343,6 +368,19 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 BWD_ELEM_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 1e-4)}
 BWD_NORM_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_RTOL = 1e-5, 1e-4
+# [census]: qwen3-0.6b's cells of one card (launch/census.py) and the join
+# superstep at the reference's sizes (launch/census_join.py); each cell's
+# kernels, with the route each must take
+CENSUS_SHAPES = {"train_4k": ("flash_attention", "flash_attention_bwd"),
+                 "prefill_32k": ("flash_attention",),
+                 "decode_32k": ("flash_attention",)}
+CENSUS_ROUTES = {"flash_attention": {"tc", "split"},
+                 "flash_attention_bwd": {"tc"}, "verify_pairs_batch": {"tc"}}
+CENSUS_SMOKE = (2, 64)       # the smoke config's steps, card vs CPU: (B, S)
+CENSUS_CHECK_ROWS = 256      # the 32k prefill is held on its last rows
+CENSUS_PLAIN_ROWS = 2048     # the plain 32k prefill runs in row blocks
+CENSUS_VERIFY_LANES = 32     # the join's verify is held on its first lanes
+CENSUS_PLAIN_LANES = 512     # the plain verify runs in lane blocks
 
 
 def log(msg: str) -> None:
@@ -614,18 +652,6 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (reps * replays)
 
 
-def bound(flops: float, nbytes: float, flops_bf16: float = 0.0,
-          flops_tf32: float = 0.0) -> tuple[float, str]:
-    """Least time in ms: float32 ``flops`` at the CUDA cores' peak plus
-    ``flops_bf16`` (bf16 operands) and ``flops_tf32`` (TF32 operands) at the
-    tensor cores', or ``nbytes`` at HBM's rate, whichever is larger."""
-    t_ops = (flops / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
-             + flops_tf32 / PEAK_TF32_FLOPS)
-    t_mem = nbytes / PEAK_BYTES
-    return (max(t_ops, t_mem) * 1e3,
-            "operations" if t_ops >= t_mem else "bytes")
-
-
 def check_d2(d2k, d2r, mk, mr, eps) -> tuple[float, int]:
     over = (d2k - d2r).abs() - (D2_ATOL + D2_RTOL * d2r.abs())
     check(over.max().item() <= 0, f"d2 outside tolerance by "
@@ -672,17 +698,16 @@ def f64_agreement(u, v, eps, outs: dict) -> dict:
 def verify_bound(e: int, m: int, n: int, d: int) -> tuple[float, str]:
     """Least time of float32-accurate verify on the card: its products as
     three TF32 tensor-core passes (the 3×TF32 split; one pass keeps too few
-    digits), or each operand read once and d² + mask written once."""
-    return bound(0.0, 4.0 * e * (m + n) * d + 5.0 * e * m * n,
-                 flops_tf32=3 * 2.0 * e * m * n * d)
+    digits), or each operand read once and d² + mask written once
+    (``roofline.kernel_cost``)."""
+    return kernel_bound(kernel_cost("verify", (e, m, n, d)))
 
 
 def assign_bound(m: int, b: int, d: int) -> tuple[float, str]:
     """Least time of float32-accurate assign on the card: its products as
     three TF32 tensor-core passes (the 3×TF32 split), or X and the centers
-    read once and (d², index) written once."""
-    return bound(0.0, 4.0 * (m + b) * d + 8.0 * m,
-                 flops_tf32=3 * 2.0 * m * b * d)
+    read once and (d², index) written once (``roofline.kernel_cost``)."""
+    return kernel_bound(kernel_cost("bucket_assign", (m, b, d)))
 
 
 def assign_row(xb: torch.Tensor, c: torch.Tensor) -> dict:
@@ -718,7 +743,8 @@ def assign_row(xb: torch.Tensor, c: torch.Tensor) -> dict:
     index_ms = graph_ms(lambda: center_index._nearest(xb, c, csq),
                         reps=2 if many else 20)
     bms, by = assign_bound(m, b, d)
-    f32_bms, _ = bound(2.0 * m * b * d, 4.0 * (m + b) * d + 8.0 * m)
+    f32_bms, _ = kernel_bound(kernel_cost("bucket_assign", (m, b, d),
+                                          route="simt"))
     log(f"[kernel] bucket_assign ({m}, {b}, {d}): route tc (block "
         f"{plan.block_m}, {plan.splits} splits); argmin equal to plain on "
         f"both routes, max abs err tc {err!r}, simt {err_simt!r}; tc bytes "
@@ -2181,17 +2207,15 @@ def simt_attention(q, k, v, kw) -> tuple[float, float]:
             graph_ms(lambda: flash.flash_attention(q, k, v, **args)))
 
 
-def route_bound(dtype, route: str, flops: float, nbytes: float
+def route_bound(kernel: str, shape: tuple, dtype, route: str, **kw
                 ) -> tuple[float, str]:
-    """The bound of ``flops`` of work on ``dtype`` operands: bf16 at the
-    bf16 tensor-core rate; float32 on the tc32 route as its three TF32
-    products each (3×TF32, as the verify and assign rows count it), on the
-    CUDA cores at their float32 rate."""
-    if dtype == torch.bfloat16:
-        return bound(0.0, nbytes, flops_bf16=flops)
-    if route == "tc32":
-        return bound(0.0, nbytes, flops_tf32=3.0 * flops)
-    return bound(flops, nbytes)
+    """The bound of one attention call (``kernel`` "flash_attention" or
+    "flash_attention_bwd", ``roofline.kernel_cost``'s shape and counts)
+    on ``dtype`` operands: bf16 at the bf16 tensor-core rate; float32 on
+    the tc32 route as its three TF32 products each (3×TF32, as the verify
+    and assign rows count it), on the CUDA cores at their float32 rate."""
+    return kernel_bound(kernel_cost(kernel, shape, ops.dtype_name(dtype),
+                                    route, **kw))
 
 
 def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
@@ -2234,18 +2258,18 @@ def attention_row(name, cfg, sq, t, kw, launches, b=LM_SLOTS,
     # the prefill kernel's split of P into two bf16 products is its
     # design's cost, not the work's). Bytes: Q and O, the K/V rows some
     # query sees, and the positions if given.
-    visible = int(mask.sum().item())        # (query, key) pairs computed
-    keys = int(mask.any(0).sum().item())    # cache rows that must be read
-    matmul = 2.0 * b * cfg.n_heads * cfg.head_dim * visible
     pos = kw.get("kv_positions")
-    elems = 2 * b * sq * cfg.n_heads * cfg.head_dim \
-        + 2 * b * keys * cfg.n_kv_heads * cfg.head_dim
-    pos_bytes = 0 if pos is None else pos.numel() * pos.element_size()
+    counts = attention_counts(
+        sq, t, causal=kw["causal"], window=kw.get("window", 0),
+        q_offset=kw.get("q_offset", 0),
+        positions=None if pos is None else pos.cpu().numpy())
+    shape = (b, sq, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
     def bounds(dtype):
-        nbytes = dtype.itemsize * elems + pos_bytes
-        return (route_bound(dtype, routes[dtype], 2.0 * matmul, nbytes),
-                route_bound(dtype, "simt", 2.0 * matmul, nbytes)[0])
+        return (route_bound("flash_attention", shape, dtype, routes[dtype],
+                            **counts),
+                route_bound("flash_attention", shape, dtype, "simt",
+                            **counts)[0])
 
     (bms, by), cuda_core = bounds(main)
     route = routes[main]
@@ -3329,7 +3353,7 @@ def bwd_errors(what: str, dtype, got, want) -> tuple[float, float, float]:
 
 def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
                       dtypes=(torch.bfloat16,),
-                      main=torch.bfloat16) -> dict:
+                      main=torch.bfloat16, few_reps: bool = False) -> dict:
     """One backward shape of the paths: the kernel of the route
     ``bwd_launch_plan`` picks against ``ref.gqa_attention_bwd`` on the same
     inputs (the three limits), in each of ``dtypes`` (``main`` the path's;
@@ -3340,7 +3364,8 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
     once (q, k, v, O, dO) and each gradient written once. Where the route is
     a tensor-core one, the CUDA-core backward (``simt``) is held to the
     same limits and timed beside it; a float32 row gives the CUDA cores'
-    bound too."""
+    bound too. ``few_reps`` times every version in fewer calls, as a
+    shape with more than 2^24 (query, key) pairs is timed."""
     t_row = time.perf_counter()
     _, b, sq, t, h, hkv, d, causal, _ = key
     kw = dict(causal=causal, window=window)
@@ -3359,7 +3384,7 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
         err, elem, norm = bwd_errors(f"flash backward {name}", dtype,
                                      ops.gqa_attention_bwd(q, k, v, out,
                                                            dout, **kw), want)
-        big = b * sq * t > 2 ** 24
+        big = few_reps or b * sq * t > 2 ** 24
         reps = dict(reps=5, replays=2) if big else {}
         ms = graph_ms(lambda: ops.gqa_attention_bwd(q, k, v, out, dout,
                                                     **kw), **reps)
@@ -3401,16 +3426,14 @@ def attention_bwd_row(name: str, key: tuple, window: int, launches: int,
                             lib_fwd=lib_fwd, lib_err=lib_err)
         del q, k, v, out, dout, qg, kg, vg, lib_grads
         torch.cuda.empty_cache()
-    visible = int(mask.sum().item())
-    keys = int(mask.any(0).sum().item())
-    matmul = 2.0 * b * h * d * visible
-    q_elems, kv_elems = b * sq * h * d, b * hkv * d
-    elems = 4 * q_elems + 2 * kv_elems * keys + 2 * kv_elems * t
+    counts = attention_counts(sq, t, causal=causal, window=window)
+    shape = (b, sq, t, h, hkv, d)
 
     def bounds(dtype):
-        nbytes = dtype.itemsize * elems
-        return (route_bound(dtype, routes[dtype], 5 * matmul, nbytes),
-                route_bound(dtype, "simt", 5 * matmul, nbytes)[0])
+        return (route_bound("flash_attention_bwd", shape, dtype,
+                            routes[dtype], **counts),
+                route_bound("flash_attention_bwd", shape, dtype, "simt",
+                            **counts)[0])
 
     (bms, by), cuda_core = bounds(main)
     st, route = stats[main], routes[main]
@@ -3641,6 +3664,231 @@ def phase_train(prev_rows: list[dict], profile: bool = False) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the census of one card
+# ---------------------------------------------------------------------------
+def census_check(rec: dict, launches: dict, kernels: tuple) -> None:
+    """One census record against the rules: ``ok``; 0 < useful ratio ≤ 1;
+    0 < work FLOPs ≤ the dense count; the measured step no faster than its
+    compute term (the work count's) or than one pass over its live
+    arguments at HBM's rate; every launch of ``kernels``
+    counted by ``op_cost`` (per step, × the steps run) equal to the launch
+    counters over the cell, each on its census route."""
+    what = f"[census] {rec['arch']} {rec['shape']}"
+    check(rec["status"] == "ok", f"{what}: {rec['status']}")
+    r = rec["roofline"]
+    check(0 < r["useful_flops_ratio"] <= 1,
+          f"{what}: useful flops ratio {r['useful_flops_ratio']}")
+    c = rec["op_cost"]
+    check(0 < c["work_flops"] <= c["flops"], f"{what}: work flops "
+          f"{c['work_flops']} against the dense {c['flops']}")
+    check(rec["step_s"] >= r["compute_s"], f"{what}: step {rec['step_s']} s "
+          f"beats its compute term {r['compute_s']} s")
+    live_s = rec["live_bytes"] / PEAK_BYTES
+    check(rec["step_s"] >= live_s, f"{what}: step {rec['step_s']} s beats "
+          f"one pass over its live arguments {live_s} s")
+    counted = rec["op_cost"]["kernels"]
+    check(set(counted) == set(kernels), f"{what}: kernels {sorted(counted)}")
+    for name in kernels:
+        k = counted[name]
+        check(k["launches"] > 0 and launches[name] == rec["steps_run"]
+              * k["launches"], f"{what}: {name} counted {k['launches']} a "
+              f"step, launched {launches[name]} in {rec['steps_run']} steps")
+        check(set(k["routes"]) <= CENSUS_ROUTES[name],
+              f"{what}: {name} routes {k['routes']}")
+    check(launches["flash_prefill_tc"] + launches["flash_decode_split"]
+          == launches["flash_attention"]
+          and launches["flash_bwd_tc"] == launches["flash_attention_bwd"]
+          and launches["verify_tc"] == launches["verify_pairs_batch"],
+          f"{what}: a launch off its census route: {launches}")
+
+
+def census_smoke_flops() -> dict:
+    """The smoke config's train, prefill and decode steps at CENSUS_SMOKE
+    count the same FLOPs under ``OpCost`` on the card (the kernels' from
+    their launch sites) as on the port's CPU path (the plain versions)."""
+    cfg = smoke_config(get_config(LM_ARCH))
+    b, s = CENSUS_SMOKE
+    out = {}
+    for name in CENSUS_SHAPES:
+        shape = dataclasses.replace(SHAPES[name], seq_len=s,
+                                    global_batch=b * 256)
+        flops = {}
+        for dev in ("cpu", "cuda"):
+            step, args, _ = prepare_cell(
+                build_model(cfg, device=dev), shape, device=dev,
+                generator=torch.Generator().manual_seed(0))
+            with OpCost() as oc:
+                step(*args)
+            flops[dev] = oc.summary()["flops"]
+        check(flops["cuda"] == flops["cpu"], f"[census] smoke {name}: card "
+              f"counts {flops['cuda']} FLOPs, CPU {flops['cpu']}")
+        out[name] = flops["cuda"]
+    return out
+
+
+def census_prefill_row(cfg, s: int, launches: int) -> dict:
+    """The (1, s) bf16 prefill of the census: the kernel on all s rows,
+    held on its last CENSUS_CHECK_ROWS against the plain version over all
+    keys (through ``q_offset``); timed (CUDA events: one call takes
+    milliseconds) beside the plain version run in row blocks of
+    CENSUS_PLAIN_ROWS (the whole would need (s, s) float32 scores), SDPA
+    (is_causal) and the bound."""
+    t_row = time.perf_counter()
+    kw = dict(causal=True)
+    q, k, v = attn_inputs(cfg, 1, s, s, torch.bfloat16, seed=s)
+    route = flash.launch_plan(1, s, s, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, torch.bfloat16).route
+    check(route == "tc", f"[census] prefill ({s}) routed {route}")
+    r0 = s - CENSUS_CHECK_ROWS
+    got = ops.gqa_attention(q, k, v, **kw)[:, r0:].float()
+    want = ref.gqa_attention(q[:, r0:], k, v, causal=True,
+                             q_offset=r0).float()
+    over = (got - want).abs() - ATTN_TOL[torch.bfloat16] * (1 + want.abs())
+    check(torch.isfinite(got).all().item() and over.max().item() <= 0,
+          f"[census] flash prefill ({s}) outside tolerance by "
+          f"{over.max().item()}")
+    err = (got - want).abs().max().item()
+    del got, want
+
+    def plain():
+        for r in range(0, s, CENSUS_PLAIN_ROWS):
+            ref.gqa_attention(q[:, r:r + CENSUS_PLAIN_ROWS], k, v,
+                              causal=True, q_offset=r)
+
+    ms = cuda_ms(lambda: ops.gqa_attention(q, k, v, **kw), reps=5, warm=1)
+    plain_ms = cuda_ms(plain, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: sdpa_call(q, k, v, kw, None), reps=5, warm=1)
+    shape = (1, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    bms, by = route_bound("flash_attention", shape, torch.bfloat16, route,
+                          **attention_counts(s, s, causal=True))
+    log(f"[census] flash prefill (1, {s}, {cfg.n_heads}, {cfg.head_dim}) x "
+        f"(1, {s}, {cfg.n_kv_heads}, {cfg.head_dim}): route bfloat16 {route}, "
+        f"max abs err {err!r} on the last {CENSUS_CHECK_ROWS} rows; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (rows of "
+        f"{CENSUS_PLAIN_ROWS}), sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by}), share {bms / ms:.3f}; launches {launches}; row "
+        f"{time.perf_counter() - t_row:.1f} s")
+    return dict(
+        name=f"flash_attention (qwen3 census prefill ({s}))", route="cuda",
+        source=FLASH_SOURCES[route],
+        replaces="src/repro/kernels/flash_attention.py:77",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms, kernel_route=route,
+        checked_rows=CENSUS_CHECK_ROWS,
+        shape=[1, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        dtype="bfloat16", ok=True)
+
+
+def census_verify_row(superstep, eps: float, launches: int) -> dict:
+    """The join superstep's verify at its census shape (E, cap, cap, d):
+    the kernel on all E lanes, held on the first CENSUS_VERIFY_LANES
+    against the plain version (the d² tolerance, the mask but on the ε²
+    band); timed (CUDA events) beside the plain version run in blocks of
+    CENSUS_PLAIN_LANES lanes (the whole at once would hold several (E,
+    cap, cap) float32 temporaries), ``torch.cdist`` and the bound."""
+    t_row = time.perf_counter()
+    slab, eidx = superstep
+    u, v = dist_mod._lanes(slab, eidx[:, 0]), dist_mod._lanes(slab,
+                                                               eidx[:, 1])
+    e, cap, d = u.shape
+    plan = verify.launch_plan(cap, cap, d)
+    check(plan.route == "tc", f"[census] verify routed {plan}")
+    eps2 = ops.eps2_f32(eps)
+    n = CENSUS_VERIFY_LANES
+    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    d2r, mr = ref.pairwise_l2_threshold(u[:n], v[:n], eps2)
+    err, n_dis = check_d2(d2k[:n], d2r, mk[:n], mr, eps)
+    del d2k, mk, d2r, mr
+
+    def plain():
+        for i in range(0, e, CENSUS_PLAIN_LANES):
+            j = i + CENSUS_PLAIN_LANES
+            ref.pairwise_l2_threshold(u[i:j], v[i:j], eps2)
+
+    ms = cuda_ms(lambda: ops.verify_pairs_batch(u, v, eps), reps=5, warm=1)
+    plain_ms = cuda_ms(plain, reps=1, warm=1)
+    lib_ms = cuda_ms(lambda: torch.cdist(u, v), reps=2, warm=1)
+    bms, by = verify_bound(e, cap, cap, d)
+    log(f"[census] verify_pairs_batch ({e}, {cap}, {cap}, {d}): route "
+        f"{plan.route}; max abs err {err!r}, mask disagreements {n_dis} on "
+        f"the first {n} lanes; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(lanes of {CENSUS_PLAIN_LANES}), cdist {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; launches {launches}; "
+        f"row {time.perf_counter() - t_row:.1f} s")
+    return dict(
+        name="pairwise_l2_threshold_batched (census join superstep)",
+        route="cuda", source=VERIFY_SOURCES["tc"],
+        replaces="src/repro/kernels/pairwise_l2.py:86", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms, kernel_route=plan.route,
+        checked_lanes=n, shape=[e, cap, cap, d], ok=True)
+
+
+def phase_census() -> list[dict]:
+    """[census]: ``census.run_cell`` for qwen3-0.6b × train_4k,
+    prefill_32k and decode_32k and ``census_join.run`` at its defaults
+    (counts zeroed just before each, read just after; ``census_check``);
+    the smoke config's card FLOPs against its CPU FLOPs; each record's
+    line and the four's roofline table; a kernel row for each new shape
+    of the cells: the 32k prefill, the 32k decode, the (1, 4096) train
+    forward and backward, and the join's verify."""
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    recs, cell_launches = [], {}
+    for name, kernels in CENSUS_SHAPES.items():
+        ops.reset_launches()
+        rec = census_mod.run_cell(LM_ARCH, name)
+        launches = ops.launches_snapshot()
+        census_mod.free_device_memory()
+        log(census_mod.record_line(rec))
+        census_check(rec, launches, kernels)
+        recs.append(rec)
+        cell_launches[name] = launches
+    superstep = census_join.make_superstep(4096, 1024, 128, 512)
+    ops.reset_launches()
+    join = census_join.run(superstep=superstep)
+    launches = ops.launches_snapshot()
+    log(census_mod.record_line(join) + f", pairs {join['pairs']}")
+    census_check(join, launches, ("verify_pairs_batch",))
+    recs.append(join)
+    cell_launches["join"] = launches
+    log(f"[census] cells {time.perf_counter() - t0:.1f} s")
+    smoke = census_smoke_flops()
+    log(f"[census] smoke config FLOPs, card = CPU: {smoke}")
+    for line in roofline.to_markdown(
+            [r["roofline"] for r in recs]).splitlines():
+        log(f"[census] {line}")
+    t1 = time.perf_counter()
+    train = cell_launches["train_4k"]
+    s_train = SHAPES["train_4k"].seq_len
+    s_pre = SHAPES["prefill_32k"].seq_len
+    t_dec = SHAPES["decode_32k"].seq_len
+    rows = [census_prefill_row(cfg, s_pre,
+                               cell_launches["prefill_32k"]["flash_attention"])]
+    rows.append(attention_row(
+        f"qwen3 census decode, T {t_dec}", cfg, 1, t_dec,
+        dict(q_offset=t_dec - 1, kv_positions=torch.arange(
+            t_dec, dtype=torch.int32, device="cuda")),
+        cell_launches["decode_32k"]["flash_attention"], 1,
+        (torch.bfloat16,), torch.bfloat16))
+    rows.append(attention_row(
+        f"qwen3 census train forward ({s_train})", cfg, s_train, s_train,
+        {}, train["flash_attention"], 1, (torch.bfloat16,), torch.bfloat16))
+    rows.append(attention_bwd_row(
+        f"qwen3 census train (1, {s_train})",
+        ("bfloat16", 1, s_train, s_train, cfg.n_heads, cfg.n_kv_heads,
+         cfg.head_dim, True, False), 0, train["flash_attention_bwd"],
+        few_reps=True))
+    rows.append(census_verify_row(superstep, census_join.EPS,
+                                  cell_launches["join"]["verify_pairs_batch"]))
+    del superstep
+    torch.cuda.empty_cache()
+    log(f"[census] kernel rows {time.perf_counter() - t1:.1f} s")
+    log(f"[census] phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def profile_lm_decode(bundle, params, tok) -> None:
     """Eight warm decode steps under torch.profiler: device time by kernel
     and the device's busy share of the steps' wall time."""
@@ -3726,6 +3974,8 @@ def main() -> int:
     log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
     torch.cuda.empty_cache()
     kernels += phase_train(kernels, args.profile)
+    torch.cuda.empty_cache()
+    kernels += phase_census()
     log(f"[done] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

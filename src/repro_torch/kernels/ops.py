@@ -14,9 +14,13 @@ tensors to the kernel as they are, strides and all. By device:
 launches per wrapper (CPU calls never count), so a run can show that its
 path went through the kernels. Every increment goes through
 ``count_launch``, under one lock: the drain threads of several replicas
-launch at once, and a bare ``+=`` on a shared dict can lose counts. The
-kernels mask ragged edges themselves, so no wrapper pads. The DiskJoin
-engines and the build call only this layer; the LM's attention calls
+launch at once, and a bare ``+=`` on a shared dict can lose counts. Where
+a launch is counted, ``COST_HOOK`` (None but inside
+``launch.op_cost.OpCost``) is told the kernel, its shape, dtype and route
+(and, for attention, its mask), so the census adds the FLOPs and bytes
+that no dispatch-level counter sees in a ``ctypes`` launch. The kernels
+mask ragged edges themselves, so no wrapper pads. The DiskJoin engines
+and the build call only this layer; the LM's attention calls
 ``gqa_attention``.
 
 ``gqa_attention`` is differentiable: where grad is on and an operand
@@ -53,6 +57,15 @@ LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             "flash_attention_bwd": 0,
             **{c: 0 for c in _flash_kernel.BWD_ROUTE_COUNTERS.values()}}
 _LAUNCHES_LOCK = threading.Lock()
+# hook(counter, kernel, shape, dtype, route[, mask]), set by
+# launch.op_cost.OpCost for the census of one step; None (no cost at all)
+# everywhere else
+COST_HOOK = None
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A dtype's name without its module: "bfloat16", "float32"."""
+    return str(dtype).removeprefix("torch.")
 
 
 def count_launch(*names: str) -> None:
@@ -120,8 +133,8 @@ def pairwise_l2_threshold(a, b, eps: float):
         return (torch.empty((a.shape[0], b.shape[0]), device=dev),
                 torch.empty((a.shape[0], b.shape[0]), dtype=torch.bool,
                             device=dev))
-    d2, mask = _launch_verify(a[None], b[None], eps2)
-    count_launch("pairwise_l2_threshold")
+    d2, mask = _launch_verify(a[None], b[None], eps2,
+                              "pairwise_l2_threshold")
     return d2[0], mask[0].view(torch.bool)
 
 
@@ -144,17 +157,21 @@ def verify_pairs_batch(u, v, eps: float):
     if 0 in shape:
         return (torch.empty(shape, device=dev),
                 torch.empty(shape, dtype=torch.bool, device=dev))
-    d2, mask = _launch_verify(u, v, eps2)
-    count_launch("verify_pairs_batch")
+    d2, mask = _launch_verify(u, v, eps2, "verify_pairs_batch")
     return d2, mask.view(torch.bool)
 
 
-def _launch_verify(a: torch.Tensor, b: torch.Tensor, eps2: float):
+def _launch_verify(a: torch.Tensor, b: torch.Tensor, eps2: float,
+                   wrapper: str):
     """Launch the route ``launch_plan`` picks for (E, M, d) × (E, N, d)
-    operands and count it under its route."""
+    operands and count it under ``wrapper`` and its route."""
     plan = _pairwise_kernel.launch_plan(a.shape[1], b.shape[1], a.shape[2])
     out = _pairwise_kernel.pairwise_l2_threshold_batched(a, b, eps2, plan)
-    count_launch(_pairwise_kernel.ROUTE_COUNTERS[plan.route])
+    count_launch(wrapper, _pairwise_kernel.ROUTE_COUNTERS[plan.route])
+    if COST_HOOK is not None:
+        COST_HOOK(wrapper, "verify",
+                  (a.shape[0], a.shape[1], b.shape[1], a.shape[2]),
+                  "float32", plan.route)
     return out
 
 
@@ -187,6 +204,10 @@ def _launch_assign(x: torch.Tensor, centers: torch.Tensor):
                                       x.shape[1])
     out = _assign_kernel.bucket_assign(x, centers, plan)
     count_launch("bucket_assign", _assign_kernel.ROUTE_COUNTERS[plan.route])
+    if COST_HOOK is not None:
+        COST_HOOK("bucket_assign", "bucket_assign",
+                  (x.shape[0], centers.shape[0], x.shape[1]), "float32",
+                  plan.route)
     return out
 
 
@@ -313,6 +334,12 @@ def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
         scale=d ** -0.5, kv_positions=kv_positions, plan=plan)
     count_launch("flash_attention_bwd",
                  _flash_kernel.BWD_ROUTE_COUNTERS[plan.route])
+    if COST_HOOK is not None:
+        COST_HOOK("flash_attention_bwd", "flash_attention_bwd",
+                  (b, sq, k.shape[1], h, k.shape[2], d),
+                  dtype_name(q.dtype), plan.route,
+                  dict(causal=causal, window=window, q_offset=q_offset,
+                       kv_positions=kv_positions))
     return grads
 
 
@@ -324,6 +351,12 @@ def _launch_flash(q, k, v, **kw) -> torch.Tensor:
                                      q.dtype)
     out = _flash_kernel.flash_attention(q, k, v, plan=plan, **kw)
     count_launch("flash_attention", _flash_kernel.ROUTE_COUNTERS[plan.route])
+    if COST_HOOK is not None:
+        COST_HOOK("flash_attention", "flash_attention",
+                  (b, sq, k.shape[1], h, k.shape[2], d),
+                  dtype_name(q.dtype), plan.route,
+                  {m: kw[m] for m in ("causal", "window", "q_offset",
+                                      "kv_positions")})
     return out
 
 

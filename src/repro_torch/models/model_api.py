@@ -12,11 +12,15 @@ MoE, SSM, hybrid, VLM) and enc-dec (whisper).
   prefill(params, batch)             → last-token logits (B, V)
   loss(params, batch)               → (scalar loss, {"nll", "aux"}; enc-dec
                                         {"nll"}), differentiable
+  input_specs(shape)                 → {name: (shape, dtype)} of a batch
 
 The reference's functions are pure and jitted; these run eagerly on the
-bundle's device (``device=None`` means CUDA). The reference's
-``input_specs`` and ``cache_specs`` exist for its dry-run lowering, which is
-not ported.
+bundle's device (``device=None`` means CUDA). ``input_specs`` gives the
+reference's batch stand-ins (tokens, labels, VLM patches, enc-dec frames)
+as (shape, torch dtype) pairs, and ``fill_inputs`` makes a batch of them
+from an explicit generator (the census, ``launch/census.py``, runs one);
+the reference's ``cache_specs`` has no counterpart, since the census
+allocates the caches it runs.
 
 The loss is the reference's, copied and not fixed: the chunked
 cross-entropy reads the logits from the embedding table
@@ -31,7 +35,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 
@@ -45,6 +49,7 @@ class ModelBundle:
     init_cache: Callable
     decode: Callable
     prefill: Callable
+    input_specs: Callable
 
 
 def build_model(cfg: ArchConfig, *, device=None) -> ModelBundle:
@@ -94,6 +99,24 @@ def chunked_xent(hidden: torch.Tensor, table: torch.Tensor,
     return tot / torch.clamp_min(cnt, 1.0)
 
 
+def fill_inputs(specs: dict, vocab: int, generator: torch.Generator,
+                device=None) -> dict:
+    """A batch for ``input_specs``' stand-ins, drawn from ``generator`` (a
+    CPU generator, so a seed gives the same batch on every device):
+    integer specs uniform over the vocabulary, floating ones standard
+    normal; moved to ``device`` (None: CUDA)."""
+    device = resolve_device(device)
+    out = {}
+    for name, (shape, dtype) in specs.items():
+        if dtype.is_floating_point:
+            x = torch.randn(shape, generator=generator).to(dtype)
+        else:
+            x = torch.randint(0, vocab, shape, generator=generator,
+                              dtype=dtype)
+        out[name] = x.to(device)
+    return out
+
+
 def _labels(batch: dict, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(batch["labels"], dtype=torch.long, device=device)
 
@@ -130,7 +153,23 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
                                         patch_embeds=batch.get("patches"))
         return transformer.lm_logits(params, hidden[:, -1:])[:, 0]
 
-    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill)
+    def input_specs(shape: ShapeSpec) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            specs = {"tokens": ((b, 1), torch.int32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": ((b, s), torch.int32)}
+        else:
+            specs = {"tokens": ((b, s), torch.int32),
+                     "labels": ((b, s), torch.int32)}
+        if is_vlm and shape.kind != "decode":
+            enc = cfg.encoder
+            fdim = enc.frontend_dim or cfg.d_model
+            specs["patches"] = ((b, enc.n_patches, fdim), torch.bfloat16)
+        return specs
+
+    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill,
+                       input_specs)
 
 
 def _build_encdec(cfg: ArchConfig, device: torch.device) -> ModelBundle:
@@ -161,4 +200,18 @@ def _build_encdec(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         hidden = encdec.decode_train(params, batch["tokens"], enc_out)
         return encdec.logits(params, hidden[:, -1:])[:, 0]
 
-    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill)
+    def input_specs(shape: ShapeSpec) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        enc = cfg.encoder
+        if shape.kind == "decode":
+            return {"tokens": ((b, 1), torch.int32)}
+        specs = {
+            "frames": ((b, enc.n_frames, cfg.d_model), torch.bfloat16),
+            "tokens": ((b, min(s, cfg.max_position)), torch.int32),
+        }
+        if shape.kind == "train":
+            specs["labels"] = ((b, min(s, cfg.max_position)), torch.int32)
+        return specs
+
+    return ModelBundle(cfg, device, init, loss, init_cache, decode, prefill,
+                       input_specs)

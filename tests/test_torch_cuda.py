@@ -1310,3 +1310,63 @@ def test_serving_launches_unchanged_after_training(cuda):
     assert ops.LAUNCHES["flash_decode_split"] == 2
     assert ops.LAUNCHES["flash_attention_bwd"] == 0
     assert pre.grad_fn is None and logits.grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_op_cost_counts_the_kernels_at_their_launch_sites(cuda, dtype):
+    """``launch.op_cost.OpCost`` sees each hand-written kernel only through
+    ``ops.COST_HOOK``: one flash forward, one flash backward and one verify
+    call count one launch each, with ``roofline.kernel_cost``'s FLOPs (the
+    plain version's count), work FLOPs (the causal mask's pairs) and
+    bytes, under the kernel's route; the hook is gone after the census."""
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.launch.roofline import attention_counts, kernel_cost
+    b, s, h, hkv, d = 2, 96, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    u, w = (torch.randn(3, 64, 32, device=cuda, generator=g)
+            for _ in range(2))
+    q.requires_grad_(True)
+    name = ops.dtype_name(dtype)
+    shape = (b, s, s, h, hkv, d)
+    counts = attention_counts(s, s, causal=True)
+    with OpCost() as oc:
+        with torch.enable_grad():
+            out = ops.gqa_attention(q, k, v, causal=True)
+            torch.autograd.grad(out.float().sum(), (q,))
+        ops.verify_pairs_batch(u, w, 1.0)
+        torch.cuda.synchronize()
+    assert ops.COST_HOOK is None
+    kernels = oc.summary()["kernels"]
+    assert set(kernels) == {"flash_attention", "flash_attention_bwd",
+                            "verify_pairs_batch"}
+    route = flash.launch_plan(b, s, s, h, hkv, d, dtype).route
+    bwd_route = flash.bwd_launch_plan(b, s, s, h, hkv, d, dtype).route
+    for kname, cost, r in (
+            ("flash_attention", kernel_cost("flash_attention", shape, name,
+                                            route, **counts), route),
+            ("flash_attention_bwd", kernel_cost("flash_attention_bwd", shape,
+                                                name, bwd_route, **counts),
+             bwd_route),
+            ("verify_pairs_batch", kernel_cost("verify", (3, 64, 64, 32)),
+             verify.launch_plan(64, 64, 32).route)):
+        (work,) = cost["flops"].values()
+        assert kernels[kname] == {"launches": 1,
+                                  "flops": cost["plain_flops"],
+                                  "work_flops": int(work),
+                                  "bytes": int(cost["bytes"]),
+                                  "routes": {r: 1}}
+    assert kernels["flash_attention"]["work_flops"] < \
+        kernels["flash_attention"]["flops"]
+    # the same calls on the CPU count the same FLOPs through the plain
+    # versions
+    qc, kc, vc = (x.detach().cpu() for x in (q, k, v))
+    qc.requires_grad_(True)
+    with OpCost() as cpu:
+        with torch.enable_grad():
+            out = ops.gqa_attention(qc, kc, vc, causal=True)
+            torch.autograd.grad(out.float().sum(), (qc,))
+        ops.verify_pairs_batch(u.cpu(), w.cpu(), 1.0)
+    assert oc.summary()["flops"] == cpu.summary()["flops"]

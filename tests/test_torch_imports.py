@@ -53,7 +53,9 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.train.optimizer",
                 "repro_torch.train.grad_compress",
                 "repro_torch.train.train_loop", "repro_torch.launch.steps",
-                "repro_torch.launch.train"]
+                "repro_torch.launch.train", "repro_torch.launch.roofline",
+                "repro_torch.launch.op_cost", "repro_torch.launch.census",
+                "repro_torch.launch.census_join"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

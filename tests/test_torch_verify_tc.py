@@ -150,10 +150,11 @@ def test_launch_plan_never_sees_e(monkeypatch):
     for e in (1, 2, 32):
         for m, d in ((64, 128), (2048, 128), (100, 33)):
             ops._launch_verify(torch.zeros(e, m, d), torch.zeros(e, 50, d),
-                               1.0)
+                               1.0, "verify_pairs_batch")
     assert plans[0:3] == plans[3:6] == plans[6:9]
     assert [p.route for p in plans[:3]] == ["tc", "tc", "simt"]
     assert ops.LAUNCHES["verify_tc"] == 6 and ops.LAUNCHES["verify_simt"] == 3
+    assert ops.LAUNCHES["verify_pairs_batch"] == 9
     ops.reset_launches()
 
 
