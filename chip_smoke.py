@@ -193,12 +193,41 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    on 32 lanes), each timed beside its plain version, SDPA or
    ``torch.cdist`` and its bound (``roofline.kernel_cost``).
 
+11. ``[mesh]`` (last, the parent's CUDA cache emptied first; it reads
+   ``[dist]``'s 100k index, kept till then): the mesh paths. One process
+   trains qwen3-0.6b at full width cut to 4 of its 28 layers (bf16, 3
+   steps of (4, 2048), ``train``) for the comparisons. NCCL at world size
+   1, in this process (a file rendezvous): ``DistributedJoin(mesh)`` on
+   ``[dist]``'s 100k device-mode configuration (the one-card superstep
+   join's bytes) and one ``train(mesh)`` step (the one process's loss).
+   Then two ranks share the card under gloo (``repro_torch.launch.mesh.
+   spawn``, ``Mesh({"data": 2, "model": 1})``, CUDA tensors through host
+   copies): the join, its pairs and distances the one-card join's bytes,
+   every verify launch of each rank on the tensor-core route, each rank's
+   launches, edges and loads logged; ``train(mesh, fsdp=True)`` on the
+   same 4 layers and batches, checkpointing after step 2: losses within
+   1e-2 of the one process's, every flash call on the tensor-core routes
+   (2 forward and 1 backward a layer a step), per-rank step ms and peak
+   memory beside one card's; the checkpoint restored onto the two ranks
+   (parts) and onto one process (whole), each part that rank's share of
+   the whole, byte for byte; one float32 step at 2 layers, (2, 64), on a
+   (1, 2) mesh against the same step in one process (loss 1e-5 relative,
+   parameters as ``[train]``'s card-vs-CPU rule); GPipe over 2 stages of
+   2 qwen3 blocks (float32, 4 microbatches) against the 4 blocks in order
+   (1e-5); one olmoe-1b-7b MoE layer at full width (64 experts, top-8,
+   float32, capacity factor 8) under the all-to-all dispatch over the
+   model axis against the one-process layer (``ATTN_TOL``'s float32
+   bound, the same top-k experts). The ``kernels`` rows of the verify and
+   flash kernels get ``mesh_launches``, all ranks' launches in the phase.
+   ``--nccl-two-ranks`` instead tries NCCL with two ranks on the one card
+   and stops (the record of why the phase runs two ranks under gloo).
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits nonzero
-before printing any result. The sizes are fixed (``N_MAIN`` …); the only
-option, ``--profile``, adds a traced repeat of the device-mode join,
-profiled point queries one at a time, traced LM decode steps and two
-traced training steps.
+before printing any result. The sizes are fixed (``N_MAIN`` …).
+``--profile`` adds a traced repeat of the device-mode join, profiled
+point queries one at a time, traced LM decode steps and two traced
+training steps; ``--nccl-two-ranks`` runs only its probe (phase 11).
 """
 from __future__ import annotations
 
@@ -206,7 +235,10 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import shutil
 import subprocess
@@ -223,6 +255,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import list_checkpoints  # noqa: E402
+from repro_torch.checkpoint import restore_latest  # noqa: E402
 from repro_torch.compute import (DeviceVerifyEngine,  # noqa: E402
                                   HostVerifyEngine)
 from repro_torch.configs import SHAPES, get_config  # noqa: E402
@@ -235,6 +268,9 @@ from repro_torch.core.bucketize import sample_centers  # noqa: E402
 from repro_torch.data import (clustered_vectors,  # noqa: E402
                               epsilon_for_avg_neighbors)
 from repro_torch.data import dedup as dedup_mod  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.dist.pipeline import gpipe_forward  # noqa: E402
+from repro_torch.dist.pipeline import make_pp_mesh  # noqa: E402
 from repro_torch.ft import (FaultInjector, InjectedKill,  # noqa: E402
                             JoinCheckpointer)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -248,10 +284,14 @@ from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.roofline import (PEAK_BYTES,  # noqa: E402
                                          attention_counts, kernel_bound,
                                          kernel_cost)
+from repro_torch.launch.mesh import (Mesh, init_distributed,  # noqa: E402
+                                     spawn, stop_fork_server)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.steps import opt_state_shardings  # noqa: E402
 from repro_torch.launch.steps import prepare_cell  # noqa: E402
 from repro_torch.models import build_model, encdec  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import moe_a2a as moe_a2a_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.obs import Slo, dash, trace_session  # noqa: E402
 from repro_torch.plan import cost_model  # noqa: E402
@@ -260,11 +300,14 @@ from repro_torch.serve import (DOWN, HEALTHY,  # noqa: E402
                                QueryScheduler, ReplicaSupervisor,
                                ServeEngine, VectorQueryService,
                                order_result)
+from repro_torch.store.vector_store import BucketedVectorStore  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 from repro_torch.train import (AdamW, AdamWConfig, TrainConfig,  # noqa: E402
                                make_int8_compressor, train)
 from repro_torch.train import train_loop as train_loop_mod  # noqa: E402
 from repro_torch.train.optimizer import global_norm  # noqa: E402
+
+IMPORTED_AT = time.time()   # [mesh]: when a spawned rank has its imports
 
 D2_RTOL, D2_ATOL = 1e-4, 1e-3   # tests/test_kernels.py's d² tolerance
 MASK_BAND = 1e-2                # mask may differ only this close to ε²
@@ -1825,6 +1868,11 @@ def dist_100k(workdir: str, out: dict, t: dict) -> None:
         dcfg = index._resolve(dict(compute_mode="device"))
         hcfg = index._resolve(dict(compute_mode="host"))
         graph, _, _ = index._graph_for(dcfg)
+        # what [mesh] shards over ranks, and the bytes it must give
+        out["mesh_job"] = dict(store=index.store.path, meta=index.meta,
+                               graph=graph, cfg=dcfg,
+                               single_digest=digest(single.pairs,
+                                                    single.distances))
         runs = {}
         for name, c in (("host", hcfg), ("device", dcfg)):
             before = ops.launches_snapshot()
@@ -1962,6 +2010,507 @@ def phase_dist(workdir: str) -> dict:
     log(f"[dist] phase seconds "
         f"{json.dumps({k: round(v, 3) for k, v in t.items()})}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [mesh]: the mesh paths in several processes sharing the card
+# ---------------------------------------------------------------------------
+MESH_WORLD = 2                   # ranks sharing the one card under gloo
+MESH_DEADLINE_S = 300            # a spawned world's deadline
+MESH_TRAIN_LAYERS = 4            # qwen3-0.6b cut to 4 of its 28 layers
+MESH_TRAIN_SHAPE = (4, 2048)     # the global batch, split over data
+MESH_TRAIN_STEPS = 3
+MESH_F32 = (2, (2, 64))          # float32 check: layers, (B, S); (1, 2) mesh
+MESH_GPIPE = dict(layers=4, M=4, mb=1, seq=128)   # 2 stages of 2 blocks
+MESH_MOE_TOKENS = (2, 128)       # one olmoe layer, full width, float32
+MESH_LOSS_TOL = 1e-2             # bf16 losses against one process
+FWD_COUNTERS = {"tc": "flash_prefill_tc", "tc32": "flash_prefill_tc32",
+                "split": "flash_decode_split", "simt": "flash_simt"}
+
+
+def digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def tallying_mesh(tally: collections.Counter):
+    """Tally the flash launches by (route counter, shape), the key of the
+    kernel row of that kernel, route and shape (``row_counter_key``)."""
+    fwd, bwd = collections.Counter(), collections.Counter()
+    try:
+        with tallying_flash(fwd), tallying_flash_bwd(bwd):
+            yield
+    finally:
+        for (route, *shape, _, _), n in fwd.items():
+            tally[(FWD_COUNTERS[route], tuple(shape))] += n
+        for (dtype, *shape, _, _), n in bwd.items():
+            route = flash.bwd_launch_plan(*shape, getattr(torch, dtype)).route
+            tally[("flash_bwd_" + route, tuple(shape))] += n
+
+
+def row_counter_key(row: dict):
+    """A flash kernel row's (route counter, shape); None for other rows."""
+    if not row["name"].startswith("flash_attention"):
+        return None
+    route = row["kernel_route"]
+    counter = ("flash_bwd_" + route if row["name"].startswith(
+        "flash_attention backward") else FWD_COUNTERS[route])
+    return (counter, tuple(row["shape"]))
+
+
+def check_tally(tally: dict, launches: dict, what: str) -> None:
+    """The tally's sum for each route counter is that counter's count."""
+    for counter in set(FWD_COUNTERS.values()) | {
+            "flash_bwd_tc", "flash_bwd_tc32", "flash_bwd_simt"}:
+        n = sum(v for (c, _), v in tally.items() if c == counter)
+        check(n == launches[counter], f"{what}: {counter} tallied {n}, "
+              f"counted {launches[counter]}")
+
+
+def mesh_train_cfg(layers: int, dtype: str = "bfloat16"):
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=layers,
+                               param_dtype=dtype)
+
+
+def mesh_train_tcfg(ckdir=None) -> TrainConfig:
+    b, s = MESH_TRAIN_SHAPE
+    return TrainConfig(steps=MESH_TRAIN_STEPS, log_every=10 ** 6,
+                       checkpoint_every=2, checkpoint_dir=ckdir,
+                       global_batch=b, seq_len=s,
+                       optimizer=AdamWConfig(**TRAIN_OPT))
+
+
+def timed_train(cfg, tcfg, **kw) -> dict:
+    """``train`` with its step times (end to end, from ``on_step``), peak
+    memory and launch counts (zeroed just before), and its flash launches
+    by route counter and shape."""
+    stamps = []
+    tally = collections.Counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with tallying_mesh(tally):
+        out = train(cfg, tcfg, on_step=lambda s, m: stamps.append(
+            time.perf_counter()), **kw)
+    torch.cuda.synchronize()
+    ends = np.array([t0] + stamps)
+    return dict(losses=out["loss_history"],
+                step_ms=(np.diff(ends) * 1e3).tolist(),
+                peak=torch.cuda.max_memory_allocated(),
+                launches=ops.launches_snapshot(), tally=dict(tally))
+
+
+def mesh_join(job: dict, mesh) -> dict:
+    """The superstep join on ``mesh`` at [dist]'s 100k device-mode config
+    → its bytes' digest, launches (zeroed just before), per-rank edges and
+    loads, wall seconds."""
+    store = BucketedVectorStore(job["store"])
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pairs, info = dist_mod.DistributedJoin(store, job["meta"], job["cfg"],
+                                           mesh).run(job["graph"])
+    torch.cuda.synchronize()
+    return dict(digest=digest(pairs, info["dists"]), pairs=len(pairs),
+                wall_s=time.perf_counter() - t0,
+                launches=ops.launches_snapshot(),
+                rank_edges=info["rank_edges"], rank_loads=info["rank_loads"])
+
+
+def mesh_restore_check(cfg, ckdir: str, mesh) -> dict:
+    """The newest checkpoint under ``ckdir`` restored onto ``mesh`` (this
+    rank's parts, ``restore_latest(..., shardings=...)``) and onto one
+    process (whole tensors, no shardings): each part must be its
+    sharding's share of the whole, byte for byte → {"step", "leaves"}."""
+    params = shd.ShardedParams(build_model(cfg, device=mesh.device).init(0),
+                               mesh, fsdp=True)
+    opt = AdamW(AdamWConfig(**TRAIN_OPT))
+    state = opt.init(params)
+    example = train_loop_mod._state(params, state)
+    shardings = {"params": params.shardings,
+                 "opt": opt_state_shardings(mesh, state, params.shardings)}
+    step, parts, _ = restore_latest(ckdir, example, shardings=shardings)
+    whole_step, whole, _ = restore_latest(ckdir, example)
+    check(step == whole_step, f"[mesh] restored steps {step}, {whole_step}")
+    leaves = 0
+    for group in ("params", "opt.mu", "opt.nu"):
+        head, _, key = group.partition(".")
+        got = parts[head][key] if key else parts[head]
+        ref = whole[head][key] if key else whole[head]
+        for n, part in got.items():
+            want = params.shardings[n].shard(ref[n])
+            check(part.dtype == want.dtype and torch.equal(part, want),
+                  f"[mesh] rank {mesh.rank}: restored {group}.{n} is not "
+                  f"its share of the one-process restore")
+            leaves += 1
+    return {"step": step, "leaves": leaves}
+
+
+def mesh_f32_step(mesh) -> dict:
+    """float32, MESH_F32's layers and batch: one step on ``mesh`` (model
+    axis 2), then, on rank 0 alone, the same step in one process (no
+    mesh) → loss error (relative) and the largest parameter difference."""
+    layers, (b, s) = MESH_F32
+    cfg = mesh_train_cfg(layers, "float32")
+    bundle = build_model(cfg, device=mesh.device)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = train_batch(cfg, b, s, g)
+    lr = TRAIN_OPT["learning_rate"]
+    tally = collections.Counter()
+    shd.set_mesh(mesh)
+    try:
+        opt = AdamW(AdamWConfig(**TRAIN_OPT))
+        store = shd.ShardedParams(bundle.init(0), mesh)
+        ops.reset_launches()
+        with tallying_mesh(tally):
+            store, _, m = make_train_step(bundle, opt, mesh)(
+                store, opt.init(store), batch)
+            loss = float(m["loss"])
+        launches = ops.launches_snapshot()
+        full = store.full(dict(store.named_parameters()))
+    finally:
+        shd.set_mesh(None)
+    mesh.barrier()
+    out = {"loss": loss, "launches": launches, "tally": dict(tally)}
+    if mesh.rank == 0:
+        params, _, m1, grads = step_with_grads(bundle, bundle.init(0),
+                                               batch, lr)
+        out["loss_one"] = float(m1["loss"])
+        out["step_err"], out["noisy"], out["total"] = check_step_params(
+            "[mesh] float32 step", full,
+            {n: p.detach() for n, p in params.named_parameters()},
+            {n: g for n, g in grads.items() if g is not None},
+            float(m1["grad_norm"]), lr)
+        out["lr_bound"] = 1e-3 * lr
+    mesh.barrier()
+    return out
+
+
+def mesh_gpipe(mesh) -> dict:
+    """GPipe over 2 stages of qwen3 blocks at full width, float32, against
+    the 4 blocks run in order in this process → the largest |difference|
+    and its bound, 1e-5 + 1e-5·|sequential|."""
+    g = MESH_GPIPE
+    cfg = mesh_train_cfg(g["layers"], "float32")
+    model = build_model(cfg, device=mesh.device).init(0)
+    per = g["layers"] // mesh.size
+    rope = transformer._rope(cfg, torch.arange(g["seq"],
+                                               device="cuda")[None])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((g["M"], g["mb"], g["seq"], cfg.d_model), device="cuda",
+                    generator=gen)
+
+    def stage_fn(block, h):
+        for i in range(int(block["first"]), int(block["first"]) + per):
+            h, _ = model.layers[i](h, rope, None)
+        return h
+
+    tally = collections.Counter()
+    with torch.no_grad():
+        ops.reset_launches()
+        with tallying_mesh(tally):
+            y = gpipe_forward(stage_fn, mesh, g["M"])(
+                {"first": torch.arange(0, g["layers"], per)}, x)
+            torch.cuda.synchronize()
+        launches = ops.launches_snapshot()
+        seq = torch.stack([_sequential(model, xm, rope) for xm in x])
+    err = (y - seq).abs()
+    return dict(max_err=float(err.max()),
+                excess=float((err - 1e-5 - 1e-5 * seq.abs()).max()),
+                launches=launches, tally=dict(tally))
+
+
+def _sequential(model, x, rope):
+    for block in model.layers:
+        x, _ = block(x, rope, None)
+    return x
+
+
+def mesh_moe(mesh) -> dict:
+    """One olmoe-1b-7b MoE layer at full width (float32, capacity factor
+    8) under the all-to-all dispatch over the model axis, against the
+    same layer in this process → the largest |difference| beside its
+    bound (ATTN_TOL's float32 form) and whether every token's top-k
+    experts agree."""
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              param_dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    moe = moe_mod.MoE(torch.Generator(device="cuda").manual_seed(5), cfg,
+                      mesh.device)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(MESH_MOE_TOKENS + (cfg.d_model,), device="cuda",
+                    generator=gen)
+    picked = []   # each path's top-k expert ids, recorded as it routes
+    top_k = moe_a2a_mod.top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        picked.append(idx)
+        return vals, idx
+
+    moe_a2a_mod.top_k = moe_mod.top_k = recording
+    shd.set_mesh(mesh)
+    try:
+        with torch.no_grad():
+            with shd.axis_rules(moe_a2a=True):
+                t0 = time.perf_counter()
+                y, aux = moe(x)
+                torch.cuda.synchronize()
+                a2a_ms = (time.perf_counter() - t0) * 1e3
+            shd.set_mesh(None)
+            y1, _ = moe(x)
+    finally:
+        shd.set_mesh(None)
+        moe_a2a_mod.top_k = moe_mod.top_k = top_k
+    tol = ATTN_TOL[torch.float32]
+    err = (y - y1).abs()
+    return dict(max_err=float(err.max()),
+                excess=float((err - tol * (1 + y1.abs())).max()),
+                same_topk=len(picked) == 2 and bool(torch.equal(*picked)),
+                a2a_ms=a2a_ms, aux=float(aux))
+
+
+def mesh_paths(mesh, job: dict) -> dict:
+    """This rank's share of the mesh paths: the join, sharded training
+    with checkpoints and, with ``job["all"]``, the checkpoint restored
+    onto the mesh, the float32 step, GPipe and the MoE layer; each path's
+    seconds."""
+    t = {}
+    t0 = time.perf_counter()
+    out = {"describe": mesh.describe(), "join": mesh_join(job, mesh)}
+    t["join"] = time.perf_counter() - t0
+    cfg = mesh_train_cfg(MESH_TRAIN_LAYERS)
+    tcfg = mesh_train_tcfg(job["ckdir"])
+    if not job["all"]:
+        tcfg = dataclasses.replace(tcfg, steps=1)
+    t0 = time.perf_counter()
+    out["train"] = timed_train(cfg, tcfg, mesh=mesh, fsdp=True)
+    t["train"] = time.perf_counter() - t0
+    if job["all"]:
+        world = mesh.size
+        mesh.barrier()   # rank 0's checkpoint writer has drained
+        for name, fn in (
+                ("restored", lambda: mesh_restore_check(
+                    cfg, job["ckdir"], mesh)),
+                ("f32", lambda: mesh_f32_step(
+                    Mesh({"data": 1, "model": world}))),
+                ("gpipe", lambda: mesh_gpipe(make_pp_mesh(world))),
+                ("moe", lambda: mesh_moe(Mesh({"data": 1,
+                                               "model": world})))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            t[name] = time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = t
+    return out
+
+
+def mesh_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of the [mesh] world that shares the card under gloo."""
+    started = time.time() - job["spawned_at"]   # start, imports, group
+    imports = IMPORTED_AT - job["spawned_at"]
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    _build.load()
+    mesh = Mesh({"data": world, "model": 1})
+    start = time.perf_counter() - t0
+    out = mesh_paths(mesh, job)
+    out["seconds"].update(spawn_to_imports=imports, spawn_to_rank=started,
+                          rank_start=start,
+                          returned_at=time.time() - job["spawned_at"])
+    return out
+
+
+def mesh_collectives(mesh) -> list[str]:
+    """Each collective of ``mesh`` (a one-rank NCCL mesh) once over every
+    axis, the default group, on card tensors in float32 and bfloat16, each
+    held to the identity a group of one rank gives → the names run. (send
+    and recv need a second rank.)"""
+    axes = mesh.axis_names
+    check(mesh.size == 1 and mesh.transport == "device"
+          and mesh._group(axes) is not None,
+          f"[mesh] no NCCL group over every axis: {mesh.describe()}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    ran = []
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.randn((8, 6), device="cuda", generator=g).to(dtype)
+        for name, got in (
+                ("all_reduce", mesh.all_reduce(t, axes)),
+                ("all_reduce max", mesh.all_reduce(t, axes, op="max")),
+                ("all_gather", mesh.all_gather(t, axes, dim=1)),
+                ("all_gather_list", mesh.all_gather_list(t, axes)[0]),
+                ("reduce_scatter", mesh.reduce_scatter(t, axes)),
+                ("reduce", mesh.reduce(t, axes, 0)),
+                ("broadcast", mesh.broadcast(t.clone(), axes, 0)),
+                ("all_to_all", mesh.all_to_all(t, axes))):
+            check(got.device == t.device and got.dtype == t.dtype
+                  and torch.equal(got, t), f"[mesh] NCCL {name} ({dtype}) "
+                  f"at world size 1 is not the identity")
+            if name not in ran:
+                ran.append(name)
+    torch.cuda.synchronize()
+    return ran
+
+
+def nccl_probe(rank: int, world: int) -> list:
+    """One all-reduce of a CUDA tensor on card 0."""
+    torch.cuda.set_device(0)
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    torch.distributed.all_reduce(t)
+    torch.cuda.synchronize()
+    return t.tolist()
+
+
+def phase_mesh(job: dict, workdir: str) -> dict:
+    """[mesh]: one process of qwen3 training for the comparison, then one
+    rank under NCCL (each collective over the default group, the join,
+    one training step), then two ranks sharing the card under gloo (join,
+    training with checkpoints, the float32 step, GPipe, the MoE
+    all-to-all). Launch counts per rank, each zeroed just before its path
+    → the verify launches of the joins and the flash launches of the
+    paths by (route counter, shape)."""
+    t_phase = time.perf_counter()
+    cfg = mesh_train_cfg(MESH_TRAIN_LAYERS)
+    one = timed_train(cfg, mesh_train_tcfg())
+    log(f"[mesh] one process: {LM_ARCH} {MESH_TRAIN_LAYERS} layers, bf16, "
+        f"{MESH_TRAIN_STEPS} steps of {MESH_TRAIN_SHAPE}: losses "
+        f"{one['losses']!r}, step ms {np.round(one['step_ms'], 1).tolist()}, "
+        f"peak {one['peak'] / 2 ** 30:.2f} GiB")
+    del one["launches"]
+    torch.cuda.empty_cache()
+    single = job.pop("single_digest")
+    runs = {}
+    # NCCL at world size 1, in this process (a file rendezvous)
+    t0 = time.perf_counter()
+    init_distributed(0, 1, backend="nccl", init_method="file://" +
+                     os.path.join(workdir, "mesh_rendezvous"))
+    try:
+        nccl = Mesh({"data": 1, "model": 1})
+        ran = mesh_collectives(nccl)
+        runs["nccl"] = [mesh_paths(nccl, dict(
+            job, ckdir=os.path.join(workdir, "mesh_ck_nccl"), all=False))]
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"[mesh] nccl: 1 rank (this process), "
+        f"{time.perf_counter() - t0:.1f} s; {runs['nccl'][0]['describe']}; "
+        f"over the default group, float32 and bfloat16, each the identity: "
+        f"{', '.join(ran)} (send/recv need two ranks)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["gloo"] = spawn(mesh_rank, MESH_WORLD, backend="gloo",
+                         deadline_s=MESH_DEADLINE_S, args=(dict(
+                             job, ckdir=os.path.join(workdir,
+                                                     "mesh_ck_gloo"),
+                             all=True, spawned_at=time.time()),))
+    log(f"[mesh] gloo: {MESH_WORLD} ranks sharing the card, "
+        f"{time.perf_counter() - t0:.1f} s with start-up; "
+        f"{runs['gloo'][0]['describe']}")
+    for backend in ("nccl", "gloo"):
+        for rank, r in enumerate(runs[backend]):
+            j, tr = r["join"], r["train"]
+            check(j["digest"] == single,
+                  f"[mesh] {backend} rank {rank}: the sharded join's bytes "
+                  f"are not the one-card superstep join's")
+            n = verify_launches_all_tc(j["launches"],
+                                       f"[mesh] {backend} rank {rank} join")
+            check(j["launches"]["pairwise_l2_threshold"] == 0,
+                  "[mesh] the sharded join launched the E = 1 tile")
+            steps = len(tr["losses"])
+            la = tr["launches"]
+            check_tally(tr["tally"], la, f"[mesh] {backend} rank {rank}")
+            layers = MESH_TRAIN_LAYERS
+            check(la["flash_attention"] == la["flash_prefill_tc"]
+                  == 2 * layers * steps and la["flash_attention_bwd"]
+                  == la["flash_bwd_tc"] == layers * steps,
+                  f"[mesh] {backend} rank {rank}: every flash call on the "
+                  f"tensor-core routes expected, got {la}")
+            diff = max(abs(a - b) for a, b in zip(tr["losses"],
+                                                  one["losses"]))
+            check(diff <= MESH_LOSS_TOL,
+                  f"[mesh] {backend} rank {rank}: losses {tr['losses']} vs "
+                  f"one process {one['losses']}")
+            log(f"[mesh] {backend} rank {rank}: join {j['pairs']} pairs, "
+                f"byte-identical, {j['wall_s']:.3f} s, verify launches {n} "
+                f"(all tc), edges by rank {j['rank_edges']}, loads by rank "
+                f"{j['rank_loads']}; train losses {tr['losses']!r} (max "
+                f"|diff| {diff:.3g} vs one process), step ms "
+                f"{np.round(tr['step_ms'], 1).tolist()}, peak "
+                f"{tr['peak'] / 2 ** 30:.2f} GiB (one card "
+                f"{one['peak'] / 2 ** 30:.2f}), flash {la['flash_attention']}"
+                f" fwd / {la['flash_attention_bwd']} bwd; seconds "
+                + json.dumps({k: round(v, 2)
+                              for k, v in r["seconds"].items()}))
+    gloo = runs["gloo"]
+    ref = gloo[0]["restored"]
+    r0 = gloo[0]
+    f32 = r0["f32"]   # its parameters were checked on rank 0
+    check(abs(f32["loss"] - f32["loss_one"]) <= 1e-5 * abs(f32["loss_one"]),
+          f"[mesh] float32 step on (1, {MESH_WORLD}): {f32}")
+    for rank, r in enumerate(gloo):
+        for path, want_bwd in (("f32", True), ("gpipe", False)):
+            la = r[path]["launches"]
+            check_tally(r[path]["tally"], la, f"[mesh] {path} rank {rank}")
+            check(la["flash_attention"] == la["flash_prefill_tc32"] > 0
+                  and la["flash_attention_bwd"] == la["flash_bwd_tc32"]
+                  and (la["flash_bwd_tc32"] > 0) == want_bwd,
+                  f"[mesh] {path} rank {rank}: every float32 flash call on "
+                  f"tc32 expected, got {la}")
+        check(r["gpipe"]["excess"] <= 0, f"[mesh] GPipe rank {rank}: "
+              f"{r['gpipe']}")
+        check(r["moe"]["excess"] <= 0 and r["moe"]["same_topk"],
+              f"[mesh] MoE all-to-all rank {rank}: {r['moe']}")
+    log(f"[mesh] checkpoint: step {ref['step']}, {ref['leaves']} leaves a "
+        f"rank restored onto the {MESH_WORLD} ranks, each part its share "
+        f"of the one-process restore; float32 (1, {MESH_WORLD}) step: loss "
+        f"{f32['loss']!r} vs {f32['loss_one']!r}, max |param diff| "
+        f"{f32['step_err']:.3g} where the gradient is above the floor "
+        f"(bound {f32['lr_bound']:.3g}), {f32['noisy']} of {f32['total']} "
+        f"elements below it past 1e-3 lr (each within 2 lr); GPipe "
+        f"{MESH_GPIPE}: max |diff| "
+        f"{max(r['gpipe']['max_err'] for r in gloo):.3g}; MoE a2a "
+        f"olmoe-1b-7b {MESH_MOE_TOKENS}: max |diff| "
+        f"{max(r['moe']['max_err'] for r in gloo):.3g}, top-k equal, "
+        f"{r0['moe']['a2a_ms']:.1f} ms; peaks by rank "
+        f"{[round(r['peak'] / 2 ** 30, 2) for r in gloo]} GiB")
+    paths = ("join", "train", "f32", "gpipe")
+    launches = {k: sum(r[p]["launches"][k] for b in runs.values()
+                       for r in b for p in paths if p in r)
+                for k in ops.LAUNCHES}
+    tally = collections.Counter()
+    for b in runs.values():
+        for r in b:
+            for p in paths[1:]:
+                if p in r:
+                    tally.update(r[p]["tally"])
+    log(f"[mesh] launches (all ranks; join, training, float32 step, GPipe) "
+        f"{launches}")
+    log("[mesh] flash launches by (route counter, shape): " + "; ".join(
+        f"{c} {list(shape)}: {n}" for (c, shape), n in sorted(tally.items())))
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, tally=tally, one=one, runs=runs)
+
+
+def attach_mesh_launches(kernels: list[dict], mesh: dict) -> None:
+    """The [mesh] phase's launches, all ranks together, as ``mesh_launches``
+    on the rows: the joins' verify launches on the join's row (as [dist]'s
+    are), each flash launch on the row of its kernel, route and shape."""
+    unrowed = dict(mesh["tally"])
+    for k in kernels:
+        key = row_counter_key(k)
+        if k["name"] == "pairwise_l2_threshold_batched":
+            k["mesh_launches"] = mesh["launches"]["verify_tc"]
+        elif key in mesh["tally"]:
+            k["mesh_launches"] = mesh["tally"][key]
+            unrowed.pop(key, None)
+    log("[mesh] flash launches at a shape no kernel row has: " + "; ".join(
+        f"{c} {list(shape)}: {n}" for (c, shape), n in sorted(
+            unrowed.items())))
 
 
 def simt_difference(index, tc_res, x: np.ndarray, eps: float,
@@ -3076,6 +3625,36 @@ def step_with_grads(bundle, params, batch, lr: float, grad_transform=None,
     return params, state, metrics, opt.grads
 
 
+def check_step_params(what: str, got: dict, want: dict, grads: dict,
+                      gnorm: float, lr: float) -> tuple[float, int, int]:
+    """Parameters after one AdamW step (by name) against the reference
+    step's: |Δ| ≤ 1e-3·lr wherever the reference's gradient is at least
+    1e-4 of its tensor's largest and 100·eps of Adam's eps after the clip;
+    below that floor Adam's first step is sign(g)·lr whatever |g|, so an
+    element may differ by up to 2·lr there, and at most 1 in 1,000
+    elements may pass 1e-3·lr → (the largest |Δ| above the floor, the
+    elements past 1e-3·lr, all elements)."""
+    scale = min(1.0, 1.0 / gnorm)
+    noisy = total = 0
+    step_err = 0.0
+    for name, ref in want.items():
+        diff = (got[name] - ref).abs()
+        ga = grads[name].abs() if name in grads else torch.zeros_like(ref)
+        big = (ga >= 1e-4 * ga.max()) & (ga * scale >= 100 * 1e-8)
+        check(diff.max().item() <= 2.01 * lr, f"{what} {name} after the "
+              f"step: {diff.max().item()} > 2 lr")
+        if big.any():
+            step_err = max(step_err, diff[big].max().item())
+        check(not big.any() or diff[big].max().item() <= 1e-3 * lr,
+              f"{what} {name} after the step off by "
+              f"{diff[big].max().item()}")
+        noisy += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    check(noisy <= total // 1000, f"{what} {noisy} of {total} elements "
+          f"past 1e-3 lr after the step")
+    return step_err, noisy, total
+
+
 def train_vs_cpu() -> dict:
     """float32, qwen3 at full width cut to TRAIN_CPU's layers: the loss,
     every gradient and every parameter after one AdamW step on the card
@@ -3121,24 +3700,8 @@ def train_vs_cpu() -> dict:
         check(rel <= TRAIN_CPU_GRAD_RTOL, f"[train] card vs CPU gradient "
               f"{name}: relative error {rel}")
         worst = max(worst, rel)
-    scale = min(1.0, 1.0 / nh)
-    noisy = total = 0
-    step_err = 0.0
-    for name, want in ph.items():
-        diff = (pc[name] - want).abs()
-        ga = gh[name].abs() if name in gh else torch.zeros_like(want)
-        big = (ga >= 1e-4 * ga.max()) & (ga * scale >= 100 * 1e-8)
-        check(diff.max().item() <= 2.01 * lr, f"[train] {name} after the "
-              f"step: {diff.max().item()} > 2 lr")
-        if big.any():
-            step_err = max(step_err, diff[big].max().item())
-        check(not big.any() or diff[big].max().item() <= 1e-3 * lr,
-              f"[train] {name} after the step off by "
-              f"{diff[big].max().item()}")
-        noisy += int((diff > 1e-3 * lr).sum())
-        total += diff.numel()
-    check(noisy <= total // 1000, f"[train] {noisy} of {total} elements "
-          f"past 1e-3 lr after the step")
+    step_err, noisy, total = check_step_params("[train]", pc, ph, gh, nh,
+                                               lr)
     log(f"[train] float32 card vs CPU, {layers} layers at full width, "
         f"({b}, {s}): loss {lc!r} vs {lh!r} (rel {loss_rel:.3g}, tol "
         f"{TRAIN_CPU_LOSS_RTOL}); worst gradient ‖Δ‖/‖g‖ {worst:.3g} (tol "
@@ -3923,10 +4486,23 @@ def main() -> int:
                     "probed bucket), eight LM decode steps and two "
                     "training steps with torch.profiler: device busy "
                     "share and top kernels")
+    ap.add_argument("--nccl-two-ranks", action="store_true",
+                    help="only try one NCCL all-reduce between two ranks "
+                    "on the one card, and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.nccl_two_ranks:
+        log(gpu_name_and_power())
+        log(f"[nccl] two ranks on one card: "
+            f"{spawn(nccl_probe, 2, backend='nccl', deadline_s=120)}")
+        return 0
+    # [mesh]'s ranks fork from a server started now, while this process
+    # is small, with this script's imports done there once (and
+    # torch._dynamo's, which remat's checkpoint imports at its first call)
+    multiprocessing.set_forkserver_preload(["chip_smoke", "torch._dynamo"])
+    multiprocessing.forkserver.ensure_running()
     t_all = time.perf_counter()
     phase_device()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3964,18 +4540,23 @@ def main() -> int:
             profile_queries(main_path["shapes"]["index"],
                             main_path["shapes"]["Q"])
         main_path["shapes"]["index"].close()
+        del main_path
+        torch.cuda.empty_cache()
+        t_lm = time.perf_counter()
+        kernels += phase_lm(args.profile)
+        kernels += phase_lm_families()
+        log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
+        torch.cuda.empty_cache()
+        kernels += phase_train(kernels, args.profile)
+        torch.cuda.empty_cache()
+        kernels += phase_census()
+        torch.cuda.empty_cache()
+        # last: it needs [dist]'s 100k index, kept in the workdir till now
+        mesh = phase_mesh(dist["mesh_job"], workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del main_path
-    torch.cuda.empty_cache()
-    t_lm = time.perf_counter()
-    kernels += phase_lm(args.profile)
-    kernels += phase_lm_families()
-    log(f"[lm] phase {time.perf_counter() - t_lm:.1f} s")
-    torch.cuda.empty_cache()
-    kernels += phase_train(kernels, args.profile)
-    torch.cuda.empty_cache()
-    kernels += phase_census()
+        stop_fork_server()
+    attach_mesh_launches(kernels, mesh)
     log(f"[done] total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,12 @@ Properties, as in the reference:
     in-place updates of the parameters never reach it) and writes on a
     daemon thread (``ft.atomic.AsyncCommitter``, depth-1 backpressure);
   * the data pipeline's cursor rides in the manifest's ``extra``, so a
-    restart resumes the same stream.
-The reference's re-sharding restore (``shardings=``) needs a mesh and waits
-for a multi-card port (ROADMAP §1 item 1).
+    restart resumes the same stream;
+  * **re-sharding restore**: a checkpoint holds full arrays, whatever mesh
+    wrote it (under a mesh, rank 0 writes what every rank gathered), and
+    ``restore_latest(..., shardings=...)`` cuts each leaf to this rank's
+    part of the current mesh: an elastic restart onto another topology, or
+    onto one card without ``shardings``.
 """
 from __future__ import annotations
 
@@ -118,13 +121,15 @@ def _restored(arr: np.ndarray, dtype: str, example):
     return torch.from_numpy(arr)
 
 
-def restore_latest(directory: str, example_tree):
+def restore_latest(directory: str, example_tree, *, shardings=None):
     """Restore the newest checkpoint → (step, tree, extra) or None.
 
     ``example_tree`` fixes the structure: its leaf names must be the
     checkpoint's, else ``ValueError`` (another architecture). Tensor leaves
     come back as CPU tensors of the saved dtype; the caller copies them
-    where they live."""
+    where they live. ``shardings``: a tree of the same names whose
+    ``dist.sharding.NamedSharding`` leaves cut the full arrays to this
+    rank's parts (None leaves stay whole)."""
     ckpts = list_checkpoints(directory)
     if not ckpts:
         return None
@@ -142,6 +147,11 @@ def restore_latest(directory: str, example_tree):
     for i, ((name, ex), dt) in enumerate(zip(leaves, manifest["dtypes"])):
         arr = np.load(os.path.join(path, f"arr_{i:05d}.npy"))
         values[name] = _restored(arr, dt, ex)
+    if shardings is not None:
+        for name, sharding in _flatten(shardings):
+            if sharding is not None and isinstance(values[name],
+                                                   torch.Tensor):
+                values[name] = sharding.shard(values[name])
     return step, _unflatten(example_tree, values), manifest.get("extra", {})
 
 

@@ -24,8 +24,16 @@ single-box ``JoinExecutor``, byte for byte. Window w's chunks are queued on
 the current stream before window w+1's disk reads, and the host waits
 only when it reads w's results.
 
-Sharding the edges over several cards (the JAX package's ``mesh``) is not
-ported: ROADMAP §1, item 1.
+Under a mesh (``launch.mesh.Mesh`` with a ``data`` axis, one process per
+rank), every rank plans the same supersteps, and each superstep's edges are
+padded to a multiple of the ``data`` group, as the reference pads them
+(host mode repeats edge 0; device mode adds lanes with no live rows), and
+cut into contiguous slices, one a rank. Each rank verifies its slice with
+the same kernel and compaction, drops what its padded lanes gave, and the
+compacted (pair, distance) rows are all-gathered in rank order: their
+concatenation is the one-card emission stream, so the pairs and distances
+are one card's, byte for byte. Rank 0 alone writes checkpoints, after the
+gather; every rank resumes from them.
 """
 from __future__ import annotations
 
@@ -141,24 +149,26 @@ def plan_supersteps(graph: BucketGraph, config: JoinConfig,
 
 
 class DistributedJoin:
-    """Superstep-wise execution of a planned join on one device.
+    """Superstep-wise execution of a planned join.
 
     ``device``: ``None`` (CUDA; raises without it) or ``"cpu"`` (the
-    kernels' plain versions). The host keeps a slab cache trimmed to the
-    upcoming window, so consecutive supersteps reuse their loads.
+    kernels' plain versions). ``mesh``: a ``launch.mesh.Mesh`` with a
+    ``data`` axis, over which each superstep's edges are cut (the rank then
+    computes on ``mesh.device``). The host keeps a slab cache trimmed to
+    the upcoming window, so consecutive supersteps reuse their loads.
     """
 
     def __init__(self, store, meta: BucketMeta, config: JoinConfig,
                  mesh=None, *, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DistributedJoin shards no edges over several cards: the "
-                "mesh argument waits for ROADMAP §1, item 1, sharding the "
-                "superstep join's edges over several cards")
+        if mesh is not None and "data" not in mesh.shape:
+            raise ValueError("DistributedJoin's mesh needs a 'data' axis")
         self.store = store
         self.meta = meta
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
+        self.rank_edges = 0     # real edges this rank verified
         self.cap = resolve_bucket_capacity(config, meta.sizes)
         self.cache_buckets = resolve_cache_buckets(config, self.cap,
                                                    store.dim)
@@ -244,13 +254,13 @@ class DistributedJoin:
         return out.numpy()
 
     # -- host mode: fetch each chunk's d2 and mask ---------------------------
-    def _dispatch_host(self, slab, edges, entries):
+    def _dispatch_host(self, slab, edges, entries, real):
         return verify_edges(slab, edges, self.eps)
 
-    def _extract_host(self, handle, slab, edges, entries):
+    def _extract_host(self, handle, slab, edges, entries, real):
         mask, d2 = self._to_host(handle[1]), self._to_host(handle[2])
         pairs, dists = [], []
-        for ei, (a, b) in enumerate(edges):
+        for ei, (a, b) in enumerate(edges[:real]):
             na, nb = entries[a][2], entries[b][2]
             m = mask[ei][:na, :nb]
             if a == b:
@@ -265,16 +275,17 @@ class DistributedJoin:
         return pairs, dists
 
     # -- device mode: compacted (row, col, distance) triples -----------------
-    def _dispatch_compact(self, slab, edges, entries):
+    def _dispatch_compact(self, slab, edges, entries, real):
         rowc = np.array([e[2] for e in entries], np.int32)
-        lanes = (to_device(rowc[edges[:, 0]], self.device),
-                 to_device(rowc[edges[:, 1]], self.device),
+        na, nb = rowc[edges[:, 0]], rowc[edges[:, 1]]
+        na[real:] = nb[real:] = 0    # padding lanes: no live rows
+        lanes = (to_device(na, self.device), to_device(nb, self.device),
                  to_device(edges[:, 0] == edges[:, 1], self.device))
         k_cap = self._pair_cap
         return verify_edges_compact(slab, edges, *lanes, self.eps,
                                     k_cap), lanes, k_cap
 
-    def _extract_compact(self, handle, slab, edges, entries):
+    def _extract_compact(self, handle, slab, edges, entries, real):
         """Read a chunk's compacted pairs (+ distances); on per-edge
         capacity overflow re-dispatch the chunk at the next pow2 (sticky
         for later chunks)."""
@@ -292,7 +303,7 @@ class DistributedJoin:
         # only the first ``top`` columns hold pairs: fetch no more
         rows_c, cols_c, dist_c = (o[:, :top].cpu().numpy() for o in out[1:])
         res, res_d = [], []
-        for ei, (a, b) in enumerate(edges):
+        for ei, (a, b) in enumerate(edges[:real]):
             k = int(counts[ei])
             if k:
                 ida, idb = entries[a][1], entries[b][1]
@@ -321,31 +332,72 @@ class DistributedJoin:
         any; host mode keeps one chunk's (E, cap, cap) d2 and mask on the
         card at a time. Window w+1's reads run after the first dispatch."""
         step = steps[si]
-        edges = step.edges_local
+        edges, real = self._my_edges(step.edges_local)
+        self.rank_edges += real
         if self._dev_pool is not None:
-            # the window's per-bucket slabs, resident on the device (one
-            # transfer per host residency)
-            slab = [self._dev_pool.operand(int(b), e[0])
-                    for b, e in zip(step.bucket_ids, entries)]
+            # the per-bucket slabs this rank's lanes read, resident on the
+            # device (one transfer per host residency)
+            used = set(edges.reshape(-1).tolist())
+            slab = [self._dev_pool.operand(int(b), e[0]) if wi in used
+                    else None for wi, (b, e) in
+                    enumerate(zip(step.bucket_ids, entries))]
             issue, collect = self._dispatch_compact, self._extract_compact
         else:
             slab = to_device(np.stack([e[0] for e in entries]), self.device)
             issue, collect = self._dispatch_host, self._extract_host
         vb = max(1, int(self.config.verify_batch))
-        chunks = [edges[i:i + vb] for i in range(0, edges.shape[0], vb)]
+        starts = range(0, edges.shape[0], vb)
+        # (lanes, real lanes among them): padding lanes are verified and
+        # their results dropped
+        chunks = [(edges[i:i + vb], min(max(real - i, 0), vb))
+                  for i in starts]
         ahead = len(chunks) if self._dev_pool is not None else 1
-        inflight = collections.deque(issue(slab, c, entries)
-                                     for c in chunks[:ahead])
+        inflight = collections.deque(issue(slab, c, entries, r)
+                                     for c, r in chunks[:ahead])
         if si + 1 < len(steps):
             self._prefetch_window(steps[si + 1])
         step_pairs, step_dists = [], []
-        for k, c in enumerate(chunks):
-            p, d = collect(inflight.popleft(), slab, c, entries)
+        for k, (c, r) in enumerate(chunks):
+            p, d = collect(inflight.popleft(), slab, c, entries, r)
             step_pairs.extend(p)
             step_dists.extend(d)
             if k + ahead < len(chunks):
-                inflight.append(issue(slab, chunks[k + ahead], entries))
+                c2, r2 = chunks[k + ahead]
+                inflight.append(issue(slab, c2, entries, r2))
+        if self.mesh is not None:
+            step_pairs, step_dists = self._gather_rows(step_pairs,
+                                                       step_dists)
         return step_pairs, step_dists
+
+    def _my_edges(self, edges: np.ndarray) -> tuple[np.ndarray, int]:
+        """(this rank's lanes, how many of them are real edges): all of
+        them on one card; under a mesh, slice i of the edges padded to a
+        multiple of the ``data`` group (host mode repeats edge 0, device
+        mode pads with edge (0, 0), whose lanes carry no live rows)."""
+        if self.mesh is None:
+            return edges, edges.shape[0]
+        n, i = self.mesh.axis_size("data"), self.mesh.axis_index("data")
+        E = edges.shape[0]
+        per = -(-E // n)
+        pad = (np.zeros((per * n - E, 2), edges.dtype)
+               if self._dev_pool is not None
+               else np.repeat(edges[:1], per * n - E, axis=0))
+        lanes = np.concatenate([edges, pad])[i * per:(i + 1) * per]
+        return lanes, min(max(E - i * per, 0), per)
+
+    def _gather_rows(self, pairs: list, dists: list) -> tuple[list, list]:
+        """Every rank's compacted rows of a superstep, in rank order along
+        ``data`` (the order of the edges they came from): one gather of
+        (id, id, distance bits) rows, each an int64 triple."""
+        rows = np.zeros((sum(len(q) for q in pairs), 3), np.int64)
+        if pairs:
+            rows[:, :2] = np.concatenate(pairs)
+            rows[:, 2] = np.concatenate(dists).view(np.int32)
+        parts = self.mesh.all_gather_list(
+            torch.from_numpy(rows).to(self.mesh.device), "data")
+        parts = [t.cpu().numpy() for t in parts if t.shape[0]]
+        return ([r[:, :2].copy() for r in parts],
+                [r[:, 2].astype(np.int32).view(np.float32) for r in parts])
 
     def run(self, graph: BucketGraph, *, checkpointer=None,
             resume_from=None, fault=None):
@@ -362,6 +414,8 @@ class DistributedJoin:
         """
         steps = plan_supersteps(graph, self.config, self.cache_buckets,
                                 meta=self.meta)
+        if self.mesh is not None and self.mesh.rank != 0:
+            checkpointer = None      # rank 0 writes, after the gather
         pairs_out, dists_out = [], []
         start_si = 0
         restore_s = 0.0
@@ -442,4 +496,11 @@ class DistributedJoin:
             info["h2d_transfers"] = self._dev_pool.transfers
             info["device_slab_hits"] = self._dev_pool.hits
             info["h2d_bytes"] = self._dev_pool.h2d_bytes
+        if self.mesh is not None:
+            # per rank along the mesh: real edges verified, bucket loads
+            mine = torch.tensor([[self.rank_edges, self.loads]],
+                                dtype=torch.int64, device=self.device)
+            per = self.mesh.all_gather(mine, self.mesh.axis_names).cpu()
+            info["rank_edges"] = per[:, 0].tolist()
+            info["rank_loads"] = per[:, 1].tolist()
         return pairs, info

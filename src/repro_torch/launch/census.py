@@ -10,7 +10,8 @@ the cell on one card instead, at its published widths and full depth:
 2. The static byte reckoning: the weights (for training also the
    gradients and AdamW's float32 μ and ν), plus the caches for decode. A
    cell above the card's memory is recorded ``skipped`` with a reason that
-   starts ``exceeds one card:``; the multi-process slice takes these up.
+   starts ``exceeds one card:``; a census on a mesh takes these up
+   (ROADMAP §1).
 3. The run (``steps.prepare_cell``, per-card batch ``global_batch //
    256``, at least one sequence): one warm-up step; one step under
    ``op_cost.OpCost`` (FLOPs and bytes, the hand-written kernels' from

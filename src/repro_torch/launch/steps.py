@@ -1,17 +1,20 @@
 """The step functions: a port of the JAX package's ``launch/steps.py``.
 
-``make_train_step``: loss → gradients → AdamW update, one call.
+``make_train_step``: loss → gradients → AdamW update, one call; with a
+mesh, on this rank's rows of the global batch and the parameters' parts
+(``dist.sharding.ShardedParams``).
 ``make_serve_step``: one decode step against the caches.
 ``prepare_cell``: one (arch × shape) cell's step and its arguments on one
 card, the counterpart of the reference's ``lower_cell``.
+``batch_shardings``, ``cache_shardings``, ``opt_state_shardings``: the
+reference's sharding trees, as ``dist.sharding.NamedSharding``s with its
+spec entries.
 
 The reference's functions are pure and jitted, with donated buffers; these
 run eagerly and update the parameters, the optimizer state and the caches
 in place. ``lower_cell`` lowers a cell on an abstract mesh without
 allocating; ``prepare_cell`` allocates the cell on the card, since the
-census (``launch/census.py``) runs it. The reference's sharding trees
-(``batch_shardings``, ``cache_shardings``, ``opt_state_shardings``) place
-a cell on a mesh of many chips and wait for the multi-process slice.
+census (``launch/census.py``) runs it.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ShapeSpec
+from repro_torch.dist import sharding as shd
 from repro_torch.models.model_api import ModelBundle, fill_inputs
 from repro_torch.train.optimizer import AdamW, AdamWConfig
 
@@ -27,12 +31,22 @@ from repro_torch.train.optimizer import AdamW, AdamWConfig
 POD_CHIPS = 256
 
 
-def make_train_step(bundle: ModelBundle, opt: AdamW):
+def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None):
     """train_step(params, opt_state, batch) → (params, opt_state, metrics):
     the loss and its gradient with respect to every parameter (the
     parameters are set to require grad here: they are built without), then
     ``opt.update``. Metrics: the loss's own ("nll", "aux"), "grad_norm",
-    "lr" and "loss", as 0-d tensors or floats, read by the caller."""
+    "lr" and "loss", as 0-d tensors or floats, read by the caller.
+
+    With ``mesh``, ``params`` is a ``ShardedParams`` and ``batch`` the
+    global batch: this rank takes its rows by the ``"batch"`` rule, and
+    its loss is weighted so that the sum over the batch axes is the global
+    loss, the token mean over the whole batch plus the mean aux loss; the
+    gradients come back onto the parts summed over those axes, and AdamW
+    updates the parts (its clip norm and the int8 compressor's scales
+    reduced over the mesh)."""
+    if mesh is not None:
+        return _sharded_train_step(bundle, opt, mesh)
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
@@ -46,6 +60,48 @@ def make_train_step(bundle: ModelBundle, opt: AdamW):
         metrics.update(opt_metrics)
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
+
+    return train_step
+
+
+def local_rows(mesh, batch: dict) -> tuple[dict, tuple]:
+    """This rank's rows of a global batch (tensors with a leading batch
+    dim), split as the ``"batch"`` rule resolves → (rows, the axes split
+    over; () where the rule does not divide the batch)."""
+    rows = next(iter(batch.values())).shape[0]
+    axes = shd.batch_axes_of(mesh, rows)
+    if not axes:
+        return dict(batch), axes
+    n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+    return {k: v.chunk(n, 0)[i] for k, v in batch.items()}, axes
+
+
+def _sharded_train_step(bundle: ModelBundle, opt: AdamW, mesh):
+    def train_step(params, opt_state, batch):
+        local, axes = local_rows(mesh, batch)
+        params.batch_axes = axes
+        params.requires_grad_(True)
+        labels = torch.as_tensor(local["labels"], device=mesh.device)
+        count = (labels[:, 1:] >= 0).sum().to(torch.float32)
+        total = mesh.all_reduce(count, axes)
+        names, tensors = zip(*params.named_parameters())
+        with torch.enable_grad():
+            _, metrics = params.loss(bundle, local)
+            nll = metrics["nll"]
+            aux = metrics.get("aux", torch.zeros_like(nll))
+            # summed over the batch axes: the global token mean + mean aux
+            loss = (nll * (count / torch.clamp_min(total, 1.0))
+                    + aux / mesh.axis_size(axes))
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        params, opt_state, opt_metrics = opt.update(
+            dict(zip(names, grads)), opt_state, params)
+        out = {k: mesh.all_reduce(v.detach(), axes) / mesh.axis_size(axes)
+               for k, v in metrics.items() if k != "nll"}
+        out["nll"] = mesh.all_reduce(
+            (nll * count).detach(), axes) / torch.clamp_min(total, 1.0)
+        out.update(opt_metrics)
+        out["loss"] = mesh.all_reduce(loss.detach(), axes)
+        return params, opt_state, out
 
     return train_step
 
@@ -149,3 +205,75 @@ def prepare_cell(bundle: ModelBundle, shape: ShapeSpec, *, device=None,
 
     return serve_step, (params, caches, batch["tokens"]), \
         {"kind": "serve_step"}
+
+
+# ---------------------------------------------------------------------------
+# sharding trees (the reference's, with its spec entries)
+# ---------------------------------------------------------------------------
+def batch_shardings(mesh, specs: dict) -> dict:
+    """{input name: NamedSharding} for ``input_specs``' stand-ins ({name:
+    (shape, dtype)}): tokens and labels split their batch dim, patches and
+    frames theirs; anything else replicates."""
+    out = {}
+    for k, (shape, _) in specs.items():
+        if k in ("tokens", "labels"):
+            axes = ["batch"] + [None] * (len(shape) - 1)
+        elif k in ("patches", "frames"):
+            axes = ["batch", None, None]
+        else:
+            axes = [None] * len(shape)
+        out[k] = shd.logical_spec(mesh, shape, *axes)
+    return out
+
+
+def _cache_axes(pstr: str, nd: int) -> list:
+    """Logical axes of one cache leaf by its path, right-aligned (the
+    reference's stacked layer dims lead and replicate)."""
+    if "cross_k" in pstr or "cross_v" in pstr:
+        axes = ["batch", None, "kv_heads", None]      # (B, F, H, D)
+    elif pstr.endswith("/k") or pstr.endswith("/v"):
+        axes = ["batch", "cache_seq", "kv_heads", None]
+    elif pstr.endswith("kpos") or pstr.endswith("pos"):
+        axes = []
+    elif pstr.endswith("state") and nd >= 4:
+        axes = ["batch", "mlp", None, None]           # ssm (B,H,P,N)
+    elif pstr.endswith("state"):
+        axes = ["batch", "mlp"]                       # rglru (B,W)
+    elif pstr.endswith("conv"):
+        axes = ["batch", None, "mlp"]
+    else:
+        axes = []
+    return [None] * (nd - len(axes)) + axes
+
+
+def cache_shardings(mesh, caches):
+    """The caches' tree (``bundle.init_cache``: a list of per-layer dicts,
+    or enc-dec's dict) with a NamedSharding for every leaf, keyed on the
+    leaf's path as the reference keys its own ("…/k", "cross_k/…"); an
+    integer ``pos`` replicates."""
+    def one(path: str, leaf):
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+        return shd.logical_spec(mesh, shape,
+                                *_cache_axes(path, len(shape)))
+
+    def walk(tree, path: str):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, f"{path}/{i}" if path else str(i))
+                    for i, v in enumerate(tree)]
+        return one(path, tree)
+
+    return walk(caches, "")
+
+
+def opt_state_shardings(mesh, opt_state: dict, params_shardings: dict
+                        ) -> dict:
+    """The optimizer state's tree: the moments (and the int8 compressor's
+    error) laid out as the parameters; the step replicated."""
+    out = {"mu": dict(params_shardings), "nu": dict(params_shardings),
+           "step": shd.NamedSharding(mesh, ())}
+    if "error" in opt_state:
+        out["error"] = dict(params_shardings)
+    return out

@@ -6,15 +6,26 @@ same options, plus ``--device``).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 100 --ckpt /path/to/ckpt        # on the card
 
-``--smoke`` trains the reduced config. ``--model-axis`` > 1 asks for the
-reference's sharded run, which needs several cards: it raises (ROADMAP §1
-item 1).
+``--smoke`` trains the reduced config. Under ``torchrun`` (one process a
+rank) it trains on the mesh (world // model_axis, model_axis) ("data",
+"model"), with NCCL on the card or gloo on the CPU (by ``--device``):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --smoke --device cpu --model-axis 2
+
+``--model-axis`` > 1 without a distributed environment raises and says
+how to launch.
 """
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.train import AdamWConfig, TrainConfig, train
 from repro_torch.train.grad_compress import make_int8_compressor
 
@@ -34,15 +45,24 @@ def main(argv=None) -> None:
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the kernels) or 'cpu' (the plain path)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="also shard parameters over the data axis")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis} shards the model over several "
-            f"cards; the port runs on one (ROADMAP §1 item 1: multi-card)")
+    mesh = None
+    if args.model_axis > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(backend="gloo" if args.device == "cpu"
+                         else "nccl")
+        if args.device != "cpu" and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        mesh = make_local_mesh(model_axis=args.model_axis,
+                               device=None if args.device == "cuda"
+                               else args.device)
+        if mesh.rank == 0:
+            print(mesh.describe())
 
     out = train(
         cfg,
@@ -54,11 +74,14 @@ def main(argv=None) -> None:
             optimizer=AdamWConfig(learning_rate=args.lr,
                                   warmup_steps=max(1, args.steps // 10),
                                   total_steps=args.steps)),
-        device=args.device,
+        device=args.device, mesh=mesh, fsdp=args.fsdp,
         grad_transform=(make_int8_compressor(cfg) if args.compress_grads
                         else None))
-    print(f"done: final_loss={out['final_loss']:.4f} "
-          f"mean_step={out['mean_step_ms']:.0f}ms")
+    if mesh is None or mesh.rank == 0:
+        print(f"done: final_loss={out['final_loss']:.4f} "
+              f"mean_step={out['mean_step_ms']:.0f}ms")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

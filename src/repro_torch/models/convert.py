@@ -101,6 +101,33 @@ def reference_leaves(cfg: ArchConfig, names) -> list[list[str]]:
     return list(groups.values())
 
 
+def reference_layout(model) -> dict[str, tuple[str, tuple, object]]:
+    """{port parameter name: (the reference leaf's path, "/"-joined as the
+    reference's ``param_shardings`` names it; the leaf's shape; (r, reps)
+    where the leaf stacks ``reps`` layers and this tensor is slice r, else
+    None)} for an ``LM`` or ``EncDec`` built by the port."""
+    cfg = model.cfg
+    position = {}
+    if not cfg.enc_dec:
+        for gi, (reps, pattern, start) in enumerate(_groups(cfg)):
+            for pi in range(len(pattern)):
+                for r in range(reps):
+                    position[start + r * len(pattern) + pi] = (gi, pi, r,
+                                                               reps)
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers" and not cfg.enc_dec:
+            gi, pi, r, reps = position[int(parts[1])]
+            path = "/".join(["groups", str(gi), str(pi)] + parts[2:])
+            out[name] = (path, (reps,) + tuple(p.shape), (r, reps))
+            continue
+        if len(parts) == 1:   # embed.table, pos_embed.table, lm_head.kernel
+            parts.append("kernel" if name == "lm_head" else "table")
+        out[name] = ("/".join(parts), tuple(p.shape), None)
+    return out
+
+
 def _port_name(path: str) -> str:
     """``embed.table`` → ``embed``, ``lm_head.kernel`` → ``lm_head``; other
     paths are the port's as they are."""

@@ -13,8 +13,9 @@ Token-choice top-k routing with capacity bounding, GShard-style:
   5. weighted combine: each token's k outputs gathered back and summed.
 
 Shared experts (deepseek) run densely on every token. The switch aux loss
-is returned. The reference's expert-parallel all-to-all (``moe_a2a.py``)
-runs only under a mesh and is not ported (ROADMAP §1 item 1).
+is returned. Under an ambient mesh with the ``moe_a2a`` rule set
+(``dist.sharding.axis_rules(moe_a2a=True)``), the expert-parallel
+all-to-all dispatch of ``moe_a2a.py`` runs instead, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.dist.sharding import current_mesh, has_rule
 from repro_torch.models import layers as L
 
 
@@ -104,6 +106,10 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, S, d) → (y (B, S, d), switch aux loss, float32 scalar)."""
+        if has_rule("moe_a2a") and current_mesh() is not None:
+            # explicit expert-parallel dataflow over the mesh's model axis
+            from repro_torch.models.moe_a2a import moe_ffn_a2a
+            return moe_ffn_a2a(self, self.cfg, x)
         m = self.cfg.moe
         b, s, d = x.shape
         xf = x.reshape(b * s, d)

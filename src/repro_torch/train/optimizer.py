@@ -12,7 +12,8 @@ dtype; a parameter without a gradient (the reference's zeros: an untied
 trees, ``update`` writes the parameters and the moments in place, under
 ``torch.no_grad()``: the optimizer state is the largest thing training
 keeps, and a second copy of it would not fit beside the model on one card
-at full width.
+at full width. Sharded parameters (``dist.sharding.ShardedParams``) update
+their parts; the clip's global norm is then summed over the mesh.
 """
 from __future__ import annotations
 
@@ -59,8 +60,9 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def named(params) -> dict[str, torch.Tensor]:
-    """A model's parameters by name (a dict of tensors stays as it is)."""
-    if isinstance(params, torch.nn.Module):
+    """A model's parameters by name (a dict of tensors stays as it is; a
+    ``dist.sharding.ShardedParams`` gives this rank's parts)."""
+    if hasattr(params, "named_parameters"):
         return dict(params.named_parameters())
     return dict(params)
 
@@ -95,7 +97,9 @@ class AdamW:
         if self.grad_transform is not None:
             grads, state["error"] = self.grad_transform(grads,
                                                         state["error"])
-        gnorm = global_norm(grads.values())
+        # sharded parameters: the norm over every part of the mesh
+        gnorm = (params.grad_norm(grads) if hasattr(params, "grad_norm")
+                 else global_norm(grads.values()))
         scale = torch.clamp_max(c.clip_norm / (gnorm + 1e-9), 1.0)
         lr = lr_schedule(c, step)
         b1t = float(F32(1.0) - F32(c.b1) ** F32(step))

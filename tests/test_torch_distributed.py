@@ -215,8 +215,9 @@ def test_keep_set_counts(tmp_path):
 
 def test_refusals(ft_store, monkeypatch):
     bs, meta, _ = ft_store
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DistributedJoin(bs, meta, JoinConfig(**FT_CFG), mesh=object(),
+    with pytest.raises(ValueError, match="'data' axis"):
+        DistributedJoin(bs, meta, JoinConfig(**FT_CFG),
+                        mesh=types.SimpleNamespace(shape={"model": 2}),
                         device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -12,8 +12,8 @@ pytest.importorskip("torch")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
 SUBPACKAGES = ["baselines", "checkpoint", "compute", "configs", "core",
-               "data", "ft", "io", "kernels", "launch", "models", "obs",
-               "plan", "runtime", "serve", "store", "train"]
+               "data", "dist", "ft", "io", "kernels", "launch", "models",
+               "obs", "plan", "runtime", "serve", "store", "train"]
 # `import jax…`, `from jax…`, `import repro`/`repro.x`, `from repro.x` — but
 # never `repro_torch`
 FORBIDDEN = re.compile(
@@ -55,7 +55,9 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.train.train_loop", "repro_torch.launch.steps",
                 "repro_torch.launch.train", "repro_torch.launch.roofline",
                 "repro_torch.launch.op_cost", "repro_torch.launch.census",
-                "repro_torch.launch.census_join"]
+                "repro_torch.launch.census_join",
+                "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+                "repro_torch.dist.pipeline", "repro_torch.models.moe_a2a"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

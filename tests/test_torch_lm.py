@@ -150,9 +150,9 @@ def test_serve_engine_tokens_match(lm):
 
 
 def test_not_ported_families_raise():
-    """Every family builds, serves and now trains: its loss is finite on a
-    small batch. What is still unported raises, naming ROADMAP's
-    multi-card item: training sharded over a mesh."""
+    """Every family builds, serves and trains: its loss is finite on a
+    small batch. Training over a mesh is ported; a mesh needs a process
+    group, and built without one it raises."""
     from repro_torch.train import TrainConfig, train
     rng = np.random.default_rng(0)
     for name in list_archs():
@@ -168,9 +168,10 @@ def test_not_ported_families_raise():
                                                cfg.d_model))
         loss, _ = bundle.loss(bundle.init(0), batch)
         assert np.isfinite(loss.item()), name
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 1"):
+    from repro_torch.launch.mesh import Mesh
+    with pytest.raises(RuntimeError, match="process group"):
         train(smoke_config(get_config("qwen3-0.6b")), TrainConfig(),
-              device="cpu", mesh=object())
+              device="cpu", mesh=Mesh({"data": 1}, device="cpu"))
 
 
 def test_device_none_means_cuda():
