@@ -279,6 +279,9 @@ from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
 from repro_torch.launch import census as census_mod  # noqa: E402
 from repro_torch.launch import census_join  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import dryrun_join  # noqa: E402
+from repro_torch.launch.collectives import COLLECTIVES  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.op_cost import OpCost  # noqa: E402
 from repro_torch.launch.roofline import (PEAK_BYTES,  # noqa: E402
@@ -316,10 +319,10 @@ N_MAIN = 1_000_000      # SIFT1M's 1,000,000 x 128
 N_PARITY = 100_000      # host mode fetches whole d²/mask batches: cut here
 N_QUERIES = 1_000
 N_RECALL_ROWS = 2_000
-N_CROSS = 100_000       # the cross-join's second side: near-duplicates
+N_CROSS = 50_000        # the cross-join's second side: near-duplicates
 N_SERVICE_QUERIES = 250  # [serve]: queries to the service, one at a time
 N_LIVE_QUERIES = 125    # [serve]: the service's repeat under attach_live
-N_SERVE_REQUESTS = 4096  # fig22's burst: every request at t = 0
+N_SERVE_REQUESTS = 512  # fig22's burst: every request at t = 0
 N_SAME_REQUESTS = 128   # its head, served by both policies, none dropped
 SERVE_SUBMITTERS = 8
 N_HOT_ANCHORS = 16
@@ -2279,8 +2282,9 @@ def mesh_moe(mesh) -> dict:
 def mesh_paths(mesh, job: dict) -> dict:
     """This rank's share of the mesh paths: the join, sharded training
     with checkpoints and, with ``job["all"]``, the checkpoint restored
-    onto the mesh, the float32 step, GPipe and the MoE layer; each path's
-    seconds."""
+    onto the mesh, training with the compute split over ``model`` (the
+    same steps on a (1, world) mesh), the float32 step (split over
+    ``model`` too), GPipe and the MoE layer; each path's seconds."""
     t = {}
     t0 = time.perf_counter()
     out = {"describe": mesh.describe(), "join": mesh_join(job, mesh)}
@@ -2298,6 +2302,9 @@ def mesh_paths(mesh, job: dict) -> dict:
         for name, fn in (
                 ("restored", lambda: mesh_restore_check(
                     cfg, job["ckdir"], mesh)),
+                ("tp", lambda: timed_train(
+                    cfg, mesh_train_tcfg(),
+                    mesh=Mesh({"data": 1, "model": world}))),
                 ("f32", lambda: mesh_f32_step(
                     Mesh({"data": 1, "model": world}))),
                 ("gpipe", lambda: mesh_gpipe(make_pp_mesh(world))),
@@ -2447,6 +2454,31 @@ def phase_mesh(job: dict, workdir: str) -> dict:
                 + json.dumps({k: round(v, 2)
                               for k, v in r["seconds"].items()}))
     gloo = runs["gloo"]
+    h, hkv = get_config(LM_ARCH).n_heads, get_config(LM_ARCH).n_kv_heads
+    for rank, r in enumerate(gloo):
+        tp, la = r["tp"], r["tp"]["launches"]
+        steps, layers = len(tp["losses"]), MESH_TRAIN_LAYERS
+        check_tally(tp["tally"], la, f"[mesh] tp rank {rank}")
+        check(la["flash_attention"] == la["flash_prefill_tc"]
+              == 2 * layers * steps and la["flash_attention_bwd"]
+              == la["flash_bwd_tc"] == layers * steps,
+              f"[mesh] tp rank {rank}: every flash call on the tensor-core "
+              f"routes expected, got {la}")
+        heads = {shape[3:5] for _, shape in tp["tally"]}
+        check(heads == {(h // MESH_WORLD, hkv // MESH_WORLD)},
+              f"[mesh] tp rank {rank}: attention ran at (H, Hkv) {heads}, "
+              f"not the rank's {h // MESH_WORLD}, {hkv // MESH_WORLD}")
+        diff = max(abs(a - b) for a, b in zip(tp["losses"], one["losses"]))
+        check(diff <= MESH_LOSS_TOL, f"[mesh] tp rank {rank}: losses "
+              f"{tp['losses']} vs one process {one['losses']}")
+        log(f"[mesh] tp rank {rank} (1, {MESH_WORLD}), the compute split "
+            f"over model: losses {tp['losses']!r} (max |diff| {diff:.3g} "
+            f"vs one process), step ms "
+            f"{np.round(tp['step_ms'], 1).tolist()}, peak "
+            f"{tp['peak'] / 2 ** 30:.2f} GiB (one card "
+            f"{one['peak'] / 2 ** 30:.2f}), attention at (H, Hkv) "
+            f"{sorted(heads)}, flash {la['flash_attention']} fwd / "
+            f"{la['flash_attention_bwd']} bwd")
     ref = gloo[0]["restored"]
     r0 = gloo[0]
     f32 = r0["f32"]   # its parameters were checked on rank 0
@@ -2478,7 +2510,7 @@ def phase_mesh(job: dict, workdir: str) -> dict:
         f"{max(r['moe']['max_err'] for r in gloo):.3g}, top-k equal, "
         f"{r0['moe']['a2a_ms']:.1f} ms; peaks by rank "
         f"{[round(r['peak'] / 2 ** 30, 2) for r in gloo]} GiB")
-    paths = ("join", "train", "f32", "gpipe")
+    paths = ("join", "train", "tp", "f32", "gpipe")
     launches = {k: sum(r[p]["launches"][k] for b in runs.values()
                        for r in b for p in paths if p in r)
                 for k in ops.LAUNCHES}
@@ -2488,7 +2520,8 @@ def phase_mesh(job: dict, workdir: str) -> dict:
             for p in paths[1:]:
                 if p in r:
                     tally.update(r[p]["tally"])
-    log(f"[mesh] launches (all ranks; join, training, float32 step, GPipe) "
+    log(f"[mesh] launches (all ranks; join, training, split training, "
+        f"float32 step, GPipe) "
         f"{launches}")
     log("[mesh] flash launches by (route counter, shape): " + "; ".join(
         f"{c} {list(shape)}: {n}" for (c, shape), n in sorted(tally.items())))
@@ -3211,8 +3244,8 @@ def recording_routes(calls: list):
     """Record (probs, expert ids, keep) of every MoE routing call."""
     inner = moe_mod.route
 
-    def route(logits, m):
-        out = inner(logits, m)
+    def route(logits, m, shared=None):
+        out = inner(logits, m, shared)
         calls.append((out[0], out[2], out[4]))
         return out
     moe_mod.route = route
@@ -4452,6 +4485,238 @@ def phase_census() -> list[dict]:
     return rows
 
 
+DRYRUN_CELLS = {"train_4k": ("flash_attention", "flash_attention_bwd"),
+                "decode_32k": ("flash_attention", "flash_decode_merge")}
+DRYRUN_ROUTES = {"flash_attention": {"tc", "split"},
+                 "flash_attention_bwd": {"tc"},
+                 "flash_decode_merge": {"split"},
+                 "verify_pairs_batch": {"tc"}}
+DRYRUN_DEADLINE_S = 300
+
+
+def dryrun_cells(out_path: str) -> None:
+    """[dryrun]'s child process: qwen3-0.6b × DRYRUN_CELLS and the join
+    superstep as rank 0 of 16×16 in a fake world of 256 ranks (counts
+    zeroed just before each, read just after) → pickled to ``out_path``:
+    each record, its launch counts and its tally."""
+    import pickle
+    torch.cuda.set_device(0)
+    _build.load()
+    ops_dir = os.path.join(os.path.dirname(out_path), "ops")
+    out = {}
+    for shape in DRYRUN_CELLS:
+        ops.reset_launches()
+        rec = dryrun_mod.run_cell(LM_ARCH, shape, False, ops_dir=ops_dir)
+        out[shape] = (rec, ops.launches_snapshot(), dryrun_tally(
+            ops_dir, rec))
+        census_mod.free_device_memory()
+    superstep = census_join.make_superstep(4096, 1024, 128, 512)
+    ops.reset_launches()
+    rec = dryrun_join.run(superstep=superstep)
+    out["join"] = (rec, ops.launches_snapshot(), [])
+    torch.distributed.destroy_process_group()
+    with open(out_path + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def dryrun_tally(ops_dir: str, rec: dict) -> list:
+    import gzip
+    name = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}__{rec['tag']}"
+    with gzip.open(os.path.join(ops_dir, name + ".json.gz"), "rt") as f:
+        return json.load(f)["tally"]
+
+
+def dryrun_check(rec: dict, launches: dict, tally: list,
+                 kernels: tuple) -> None:
+    """One dry-run record against the rules: ``ok``; the step no faster
+    than its compute term; the tally's traffic, reckoned here op by op,
+    equal to ``collective_bytes``'s, kind by kind; every launch of
+    ``kernels`` that ``op_cost`` counted (a step, × the steps run) equal to
+    the launch counters over the cell, each on its route."""
+    what = f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}"
+    check(rec["status"] == "ok", f"{what}: {rec['status']} "
+          f"{rec.get('error', '')}")
+    r = rec["roofline"]
+    check(rec["step_s"] >= r["compute_s"], f"{what}: step {rec['step_s']} s "
+          f"beats its compute term {r['compute_s']} s")
+    mine = {k: 0 for k in COLLECTIVES}
+    for e in tally:
+        n, b = e["n"], e["bytes"]
+        mine[e["kind"]] += (b if e["kind"] == "collective-permute" else
+                            int((2 if e["kind"] == "all-reduce" else 1)
+                                * b * (n - 1) / n))
+    coll = rec["collectives"]
+    check(all(coll[k]["traffic_bytes"] == mine[k] for k in COLLECTIVES)
+          and coll["total_traffic_bytes"] == sum(mine.values())
+          == rec["op_cost"]["collective_traffic_bytes"]
+          and len(tally) == rec["collective_ops"],
+          f"{what}: tally {mine} vs collective_bytes {coll}")
+    counted = rec["op_cost"]["kernels"]
+    check(set(counted) == set(kernels), f"{what}: kernels {sorted(counted)}")
+    for name in kernels:
+        k = counted[name]
+        check(k["launches"] > 0 and launches[name] == rec["steps_run"]
+              * k["launches"], f"{what}: {name} counted {k['launches']} a "
+              f"step, launched {launches[name]} in {rec['steps_run']} steps")
+        check(set(k["routes"]) <= DRYRUN_ROUTES[name],
+              f"{what}: {name} routes {k['routes']}")
+    check(launches["flash_prefill_tc"] + launches["flash_decode_split"]
+          == launches["flash_attention"]
+          and launches["flash_bwd_tc"] == launches["flash_attention_bwd"]
+          and launches["verify_tc"] == launches["verify_pairs_batch"],
+          f"{what}: a launch off its route: {launches}")
+
+
+def decode_slice_row(cfg, b: int, t_slice: int, n: int,
+                     launches: int) -> dict:
+    """The decode step of a cache split over n ranks, at the shape one
+    rank runs: its slice (B, 1, H, D) × (B, T/n, Hkv, D) through the split
+    route with its log-sum-exp, then the merge launch over n slices' parts.
+    Held whole: n slices of a full cache, each through the kernel, merged
+    by the merge kernel, against the plain attention over the whole cache
+    (ATTN_TOL); the merge against its plain version. Timed (CUDA graphs):
+    one slice's launch plus one merge, beside the plain slice and merge,
+    SDPA over the slice, and the bound of the two launches' work."""
+    t_row = time.perf_counter()
+    t = t_slice * n
+    pos = t - 1
+    q, k, v = attn_inputs(cfg, b, 1, t, torch.bfloat16, seed=t_slice + n)
+    kpos = torch.arange(t, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, q_offset=pos)
+    parts = [ops.gqa_attention_lse(q, k_, v_, kv_positions=p_, **kw)
+             for k_, v_, p_ in zip(k.chunk(n, 1), v.chunk(n, 1),
+                                   kpos.chunk(n))]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([x for _, x in parts])
+    got = ops.decode_merge(outs, lses, q.dtype, cfg.n_kv_heads).float()
+    want = ref.gqa_attention(q, k, v, kv_positions=kpos, **kw).float()
+    tol = ATTN_TOL[q.dtype]
+    over = (got - want).abs() - tol * (1 + want.abs())
+    check(torch.isfinite(got).all().item() and over.max().item() <= 0,
+          f"[dryrun] merged decode slices outside tolerance by "
+          f"{over.max().item()}")
+    err = (got - want).abs().max().item()
+    plain_merge = ref.decode_merge(outs, lses)
+    merge_err = (got - plain_merge).abs().max().item()
+    check(merge_err <= tol * (1 + plain_merge.abs().max().item()),
+          f"[dryrun] merge vs its plain version {merge_err}")
+    k0, v0, p0 = k[:, :t_slice], v[:, :t_slice], kpos[:t_slice]
+    kw0 = dict(kv_positions=p0, **kw)
+
+    def rank_step():
+        o, x = ops.gqa_attention_lse(q, k0, v0, **kw0)
+        return ops.decode_merge(outs, lses, q.dtype, cfg.n_kv_heads)
+
+    def plain_step():
+        ref.gqa_attention_lse(q, k0, v0, **kw0)
+        return ref.decode_merge(outs, lses)
+
+    ms = graph_ms(rank_step)
+    plain_ms = graph_ms(plain_step, reps=5)
+    mask = ref.gqa_mask(1, p0, causal=True, window=0, q_offset=pos)
+    lib_ms = graph_ms(lambda: sdpa_call(q, k0, v0, kw0, mask))
+    counts = attention_counts(1, t_slice, causal=True, q_offset=pos,
+                              positions=p0.cpu().numpy())
+    slice_cost = kernel_cost("flash_attention", (b, 1, t_slice, cfg.n_heads,
+                                                 cfg.n_kv_heads,
+                                                 cfg.head_dim),
+                             "bfloat16", "split", **counts)
+    merge_cost = kernel_cost("flash_decode_merge", (n, b, 1, cfg.n_heads,
+                                                    cfg.head_dim),
+                             "bfloat16", "split")
+    flops = dict(slice_cost["flops"])
+    for c, f in merge_cost["flops"].items():
+        flops[c] = flops.get(c, 0) + f
+    bms, by = kernel_bound({"flops": flops, "bytes": slice_cost["bytes"]
+                            + merge_cost["bytes"]})
+    log(f"[dryrun] flash decode slice + merge ({b}, 1, {cfg.n_heads}, "
+        f"{cfg.head_dim}) x ({b}, {t_slice}, {cfg.n_kv_heads}, "
+        f"{cfg.head_dim}), {n} slices: {n} merged against the whole "
+        f"{t}-row cache max abs err {err!r}, merge vs plain {merge_err!r}; "
+        f"a rank's slice + merge {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"(slice) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), share "
+        f"{bms / ms:.3f}; launches {launches}; row "
+        f"{time.perf_counter() - t_row:.1f} s")
+    return dict(
+        name="flash_attention (dry-run decode slice + merge, 16x16 rank)",
+        route="cuda", source=FLASH_SOURCES["split"],
+        replaces="src/repro/kernels/flash_attention.py:77",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms, kernel_route="split",
+        merge_max_abs_err=merge_err, slices=n,
+        shape=[b, 1, t_slice, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        dtype="bfloat16", ok=True)
+
+
+def phase_dryrun() -> list[dict]:
+    """[dryrun]: ``dryrun_cells`` in a child process (a process holds one
+    default group; the fake world's must not meet [mesh]'s), each record
+    checked (``dryrun_check``) and logged; then a kernel row for each new
+    shape the cells ran: the train_4k rank's forward and backward at its
+    local head (B 16, S = T 4,096, H 1, Hkv 1), the decode_32k rank's
+    slice and merge (B 8, T 2,048, H 16, Hkv 8, 16 slices) and the join's
+    16 edges a rank."""
+    import pickle
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = os.path.join(tmp, "cells.pkl")
+    try:
+        proc = multiprocessing.get_context("forkserver").Process(
+            target=dryrun_cells, args=(path,), daemon=True)
+        proc.start()
+        proc.join(DRYRUN_DEADLINE_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+        check(os.path.exists(path), f"[dryrun] the child process left no "
+              f"result (exit code {proc.exitcode})")
+        with open(path, "rb") as f:
+            cells = pickle.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for shape, kernels in DRYRUN_CELLS.items():
+        rec, launches, tally = cells[shape]
+        log(dryrun_mod.record_line(rec))
+        dryrun_check(rec, launches, tally, kernels)
+    join, jl, _ = cells["join"]
+    log(dryrun_mod.record_line(join) + f", pairs {join['pairs']}")
+    dryrun_check(join, jl, [], ("verify_pairs_batch",))
+    check(join["rank_edges"] == 16, f"[dryrun] join edges {join}")
+    log(f"[dryrun] cells {time.perf_counter() - t0:.1f} s (a child process)")
+    t1 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    train = cells["train_4k"][1]
+    rec = cells["train_4k"][0]
+    b, s = rec["rank_rows"], SHAPES["train_4k"].seq_len
+    one = dataclasses.replace(cfg, n_heads=cfg.n_heads // 16,
+                              n_kv_heads=max(1, cfg.n_kv_heads // 16))
+    rows = [attention_row(
+        f"qwen3 dry-run train forward, 16x16 rank ({b}, {s}), "
+        f"{one.n_heads} head", one, s, s, {}, train["flash_attention"], b,
+        (torch.bfloat16,), torch.bfloat16)]
+    rows.append(attention_bwd_row(
+        f"qwen3 dry-run train, 16x16 rank ({b}, {s}), {one.n_heads} head",
+        ("bfloat16", b, s, s, one.n_heads, one.n_kv_heads, cfg.head_dim,
+         True, False), 0, train["flash_attention_bwd"], few_reps=True))
+    dec = cells["decode_32k"][0]
+    t_slice = SHAPES["decode_32k"].seq_len // 16
+    rows.append(decode_slice_row(cfg, dec["rank_rows"], t_slice, 16,
+                                 cells["decode_32k"][1][
+                                     "flash_decode_split"]))
+    superstep = census_join.make_superstep(4096, 1024, 128, 512)
+    row = census_verify_row((superstep[0], superstep[1][:16]),
+                            census_join.EPS, jl["verify_pairs_batch"])
+    row["name"] = ("pairwise_l2_threshold_batched (dry-run join superstep, "
+                   "16 edges a 16x16 rank)")
+    rows.append(row)
+    del superstep
+    torch.cuda.empty_cache()
+    log(f"[dryrun] kernel rows {time.perf_counter() - t1:.1f} s")
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def profile_lm_decode(bundle, params, tok) -> None:
     """Eight warm decode steps under torch.profiler: device time by kernel
     and the device's busy share of the steps' wall time."""
@@ -4550,6 +4815,8 @@ def main() -> int:
         kernels += phase_train(kernels, args.profile)
         torch.cuda.empty_cache()
         kernels += phase_census()
+        torch.cuda.empty_cache()
+        kernels += phase_dryrun()
         torch.cuda.empty_cache()
         # last: it needs [dist]'s 100k index, kept in the workdir till now
         mesh = phase_mesh(dist["mesh_job"], workdir)

@@ -27,15 +27,22 @@ the port holds one tensor per layer, so a stack entry makes the layer's
 tensor live whole on the ranks whose coordinate holds its stack position.
 
 ``ShardedParams`` is the counterpart of ``jax.device_put(params,
-param_shardings(...))`` for training: each rank holds its slice of every
-parameter; a block's parameters are all-gathered just before it runs (and
-again when remat recomputes it) and dropped after; the gradients are
-reduce-scattered back onto the shards, summed over the axes the batch was
-split over. Ranks of one ``model`` group run the same rows (the batch is
-replicated over ``model``, as the reference's batch spec has it), so every
-result is one card's while parameters, gradients and AdamW state shrink by
-the product of the axes their specs name. Splitting the ``model`` axis's
-compute (heads, MLP columns), as GSPMD does, is not done here.
+param_shardings(...))`` for training and serving: each rank holds its
+slice of every parameter; a block's parameters are all-gathered just
+before it runs (and again when remat recomputes it) and dropped after; the
+gradients are reduce-scattered back onto the shards, summed over the axes
+the batch was split over. The batch is replicated over ``model``, as the
+reference's batch spec has it, and the ranks of a ``model`` group split
+the compute of each block between them (``dist.tensor_parallel``: heads,
+MLP columns, experts, SSD heads, RG-LRU width, the vocabulary, as GSPMD
+splits the reference's annotated activations). A parameter is gathered
+only over the axes whose split its use does not keep: its ``model`` part
+stays local wherever its layout splits the dimension the compute splits
+(``wq``'s columns, ``w_down``'s rows, the vocabulary's rows), and its
+gradient is then summed over the batch axes only; a parameter gathered
+whole for a split region (``wk`` where the KV heads do not divide
+``model``; a stacked leaf whose layout names ``model`` on its layer axis)
+has a partial gradient on each rank, summed over ``model`` too.
 """
 from __future__ import annotations
 
@@ -88,6 +95,12 @@ def current_mesh():
 def has_rule(name: str) -> bool:
     """True iff logical axis ``name`` has a non-empty rule installed."""
     return bool(_rules().get(name))
+
+
+def rule(name: str) -> tuple[str, ...]:
+    """The mesh axes logical axis ``name`` resolves to (() where it has no
+    rule)."""
+    return tuple(_rules().get(name, ()))
 
 
 @contextlib.contextmanager
@@ -185,6 +198,15 @@ class NamedSharding:
             self.mesh.coords[a] == 0 for a in self.mesh.shape
             if a not in named)
 
+    def local_shape(self, shape, keep: tuple = ()) -> tuple:
+        """The shape of the tensor gathered over every named axis but
+        ``keep``."""
+        out = list(shape)
+        for d, e in enumerate(self.dims):
+            if e is not None and set(_entry_axes(e)) <= set(keep):
+                out[d] //= self.mesh.axis_size(_entry_axes(e))
+        return tuple(out)
+
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's part of ``full`` (the counterpart of
         ``jax.device_put(full, sharding)``); an empty tensor where the rank
@@ -199,26 +221,29 @@ class NamedSharding:
                     self.mesh.axis_index(axes)]
         return t.clone()
 
-    def gather(self, local: torch.Tensor, shape) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, shape, keep: tuple = ()
+               ) -> torch.Tensor:
         """The full tensor from every rank's part (collective over the
-        mesh: every rank calls it for the same tensors in one order)."""
+        mesh: every rank calls it for the same tensors in one order); the
+        dimensions split over axes within ``keep`` stay this rank's."""
         if self.holds():
             t = local
             for d in reversed(range(len(self.dims))):
                 e = self.dims[d]
-                if e is not None:
+                if e is not None and not set(_entry_axes(e)) <= set(keep):
                     t = self.mesh.all_gather(t, _entry_axes(e), d)
         else:
-            t = local.new_empty(tuple(shape))
+            t = local.new_empty(self.local_shape(shape, keep))
         own = self.owner()
         if own is not None:
             t = self.mesh.broadcast(t, own[0], own[1])
         return t
 
-    def reduce_grad(self, g: torch.Tensor, batch_axes: tuple
-                    ) -> torch.Tensor:
-        """A full gradient of this rank's rows → this rank's part of the
-        gradient summed over ``batch_axes`` (collective)."""
+    def reduce_grad(self, g: torch.Tensor, batch_axes: tuple,
+                    keep: tuple = ()) -> torch.Tensor:
+        """A gradient of this rank's rows (of the tensor ``gather`` gave
+        with ``keep``) → this rank's part of the gradient summed over
+        ``batch_axes`` (collective)."""
         own = self.owner()
         if own is not None:
             axes, idx = own
@@ -231,7 +256,7 @@ class NamedSharding:
         if rest:
             g = self.mesh.all_reduce(g, rest)
         for d, e in enumerate(self.dims):
-            if e is None:
+            if e is None or set(_entry_axes(e)) <= set(keep):
                 continue
             axes = _entry_axes(e)
             if set(axes) <= set(batch_axes):
@@ -334,7 +359,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, store, names, *parts):
         ctx.store, ctx.names = store, names
-        return tuple(store.shardings[n].gather(p, store.shapes[n])
+        return tuple(store.shardings[n].gather(p, store.shapes[n],
+                                               store.keep.get(n, ()))
                      for n, p in zip(names, parts))
 
     @staticmethod
@@ -342,10 +368,13 @@ class _Gather(torch.autograd.Function):
         store = ctx.store
         out = []
         for n, g in zip(ctx.names, grads):
+            sh, keep = store.shardings[n], store.keep.get(n, ())
             if g is None:
-                g = torch.zeros(store.shapes[n], dtype=store.dtypes[n],
-                                device=store.device)
-            out.append(store.shardings[n].reduce_grad(g, store.batch_axes))
+                g = torch.zeros(sh.local_shape(store.shapes[n], keep),
+                                dtype=store.dtypes[n], device=store.device)
+            axes = store.batch_axes + (("model",) if n in store.partial
+                                       else ())
+            out.append(sh.reduce_grad(g, axes, keep))
         return (None, None, *out)
 
 
@@ -376,13 +405,26 @@ class ShardedParams:
     block's parameters gathered around its call: the top-level ones
     (embedding, final norm, frontend) for the whole loss, each of
     ``model.layers`` by forward hooks (its recomputation under remat too). ``batch_axes``: the axes the rows of
-    the current batch were split over (the gradients' sum)."""
+    the current batch were split over (the gradients' sum), from
+    ``batch_rows``, the global batch's rows, where it is given; the compute
+    split over ``model`` (``tensor_parallel.param_plan``) follows them.
+    ``keep``: {name: ("model",)} for the parameters whose ``model`` part
+    stays local; ``partial``: the names gathered whole whose gradient is
+    summed over ``model``."""
 
-    def __init__(self, model: torch.nn.Module, mesh, *, fsdp: bool = False):
+    def __init__(self, model: torch.nn.Module, mesh, *, fsdp: bool = False,
+                 batch_rows: Optional[int] = None):
+        from repro_torch.dist import tensor_parallel as tp
         self.model = model
         self.mesh = mesh
         self.device = mesh.device
         self.shardings = param_shardings(model, mesh, fsdp=fsdp)
+        self.batch_axes: tuple = (() if batch_rows is None
+                                  else batch_axes_of(mesh, batch_rows))
+        plan = tp.param_plan(model, mesh, self.batch_axes)
+        self.keep = {n: ("model",) for n, d in plan.items()
+                     if d is not None and self._splits(n, d)}
+        self.partial = {n for n in plan if n not in self.keep}
         self.shapes, self.dtypes, self.parts = {}, {}, {}
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -399,8 +441,15 @@ class ShardedParams:
                 self.blocks.append((block, names))
         in_block = {n for _, names in self.blocks for n in names}
         self.top = [n for n in self.parts if n not in in_block]
-        self.batch_axes: tuple = ()
         self._hook_blocks()
+
+    def _splits(self, name: str, dim: int) -> bool:
+        """The layout of ``name`` splits its dimension ``dim`` over
+        ``model`` alone, and not its layer stack."""
+        sh = self.shardings[name]
+        own = sh.owner()
+        return (sh.dims[dim] == "model"
+                and (own is None or "model" not in own[0]))
 
     # -- the optimizer's view ------------------------------------------------
     def named_parameters(self):
@@ -448,14 +497,27 @@ class ShardedParams:
             block.register_forward_pre_hook(pre)
             block.register_forward_hook(post)
 
-    def loss(self, bundle, batch: dict):
-        """``bundle.loss`` on this rank's batch rows with the gathered
-        parameters → (loss, metrics)."""
+    def scope(self, train: bool = False):
+        """The compute split of this store's model (``tensor_parallel
+        .scope``), for a call and for its backward pass; ``train``: a
+        training step's."""
+        from repro_torch.dist import tensor_parallel as tp
+        return tp.scope(self.mesh, self.batch_axes, train)
+
+    def call(self, fn, *args, train: bool = False):
+        """``fn(model, *args)`` on this rank's rows with the gathered
+        parameters, split over ``model`` (a prefill, a decode step, a
+        cache's set-up; ``train``: a training step's loss)."""
         # remat's recomputation runs each block to its end, so the block's
         # post-hook drops the parameters it gathered
-        with set_checkpoint_early_stop(False), \
+        with self.scope(train), set_checkpoint_early_stop(False), \
                 _bound(self.model, self.gather(self.top)):
-            return bundle.loss(self.model, batch)
+            return fn(self.model, *args)
+
+    def loss(self, bundle, batch: dict):
+        """``bundle.loss`` of a training step on this rank's batch rows
+        with the gathered parameters → (loss, metrics)."""
+        return self.call(bundle.loss, batch, train=True)
 
     def full(self, tensors: dict) -> dict:
         """Full tensors of per-name parts laid out as the parameters (the

@@ -128,8 +128,11 @@ def load() -> ctypes.CDLL:
         lib.flash_prefill_sm90_f32_launch.restype = i32
         lib.flash_decode_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, strides, *shape, ctypes.c_float,
-            i32, i32, i32, ptr, ptr, i32, ptr]
+            i32, i32, i32, ptr, ptr, ptr, i32, i32, ptr]
         lib.flash_decode_launch.restype = i32
+        lib.flash_decode_merge_launch.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr]
+        lib.flash_decode_merge_launch.restype = i32
         lib.flash_bwd_launch.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, strides, *shape,
             ctypes.c_float, i32, ptr, ptr, i32, ptr]

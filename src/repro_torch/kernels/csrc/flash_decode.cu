@@ -36,7 +36,14 @@
 //   pass 2, one block per (row, KV head, batch): merges the splits,
 //     o = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30)
 //     with M the largest m_s, skipping empty splits, and writes o in q's
-//     type.
+//     type (or float32, for a merge across ranks) and, where asked, the
+//     row's log-sum-exp M + log(sum_s exp(m_s - M) l_s) (-inf for a row
+//     that sees no key).
+// Across ranks: a decode cache split over its sequence is attended one
+// slice a rank (flash_decode_launch with lse), and the slices' outputs
+// merge by pass 2 alone (flash_decode_merge_launch): slice r's partial is
+// (m, l) = (lse_r, 1) with acc = o_r, so the merge weighs o_r by
+// exp(lse_r - lse) and gives a slice with lse -inf no weight.
 // For the decode shape that is 8 splits x 8 KV heads x 4 = 256 blocks.
 // All arithmetic is float32 on the CUDA cores.
 #include <climits>
@@ -61,6 +68,8 @@ struct Args {
   const int32_t* kv_pos;    // (T,) or null: positions are the indices
   float* part_ml;           // (B, Hkv, n_splits, R, 2): m, l
   float* part_acc;          // (B, Hkv, n_splits, R, D)
+  float* lse;               // (B, Sq, H) or null
+  int o_f32;                // o is float32 whatever q's type
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int Sq, T, H, Hkv, D, g, n_splits;
   int causal, window, q_offset;
@@ -333,26 +342,42 @@ __global__ void __launch_bounds__(kThreads)
   for (int sp = 0; sp < a.n_splits; ++sp)
     M = fmaxf(M, a.part_ml[2 * (part0 + static_cast<long long>(sp) * R)]);
   const int s = r / a.g, h = hk * a.g + r % a.g;
-  T* out = static_cast<T*>(a.o) +
-           ((static_cast<long long>(b) * a.Sq + s) * a.H + h) * D;
+  const long long orow = (static_cast<long long>(b) * a.Sq + s) * a.H + h;
+  float l = 0.f;
+  if (M != neg_inf()) {
+    for (int sp = 0; sp < a.n_splits; ++sp) {
+      const long long pr = part0 + static_cast<long long>(sp) * R;
+      const float m = a.part_ml[2 * pr];
+      if (m == neg_inf()) continue;
+      l = fmaf(expf(m - M), a.part_ml[2 * pr + 1], l);
+    }
+  }
+  if (a.lse != nullptr && threadIdx.x == 0)
+    a.lse[orow] = M == neg_inf() ? neg_inf() : M + logf(l);
+  const float den = fmaxf(l, 1e-30f);
   for (int col = 2 * threadIdx.x; col < D; col += 2 * kThreads) {
-    float l = 0.f, x0 = 0.f, x1 = 0.f;
+    float x0 = 0.f, x1 = 0.f;
     if (M != neg_inf()) {
       for (int sp = 0; sp < a.n_splits; ++sp) {
         const long long pr = part0 + static_cast<long long>(sp) * R;
         const float m = a.part_ml[2 * pr];
         if (m == neg_inf()) continue;  // empty split: acc never written
         const float w = expf(m - M);
-        l = fmaf(w, a.part_ml[2 * pr + 1], l);
         const float2 acc =
             *reinterpret_cast<const float2*>(a.part_acc + pr * D + col);
         x0 = fmaf(w, acc.x, x0);
         x1 = fmaf(w, acc.y, x1);
       }
     }
-    const float den = fmaxf(l, 1e-30f);
-    store(out + col, x0 / den);
-    store(out + col + 1, x1 / den);
+    if (a.o_f32) {
+      float* out = static_cast<float*>(a.o) + orow * D;
+      store(out + col, x0 / den);
+      store(out + col + 1, x1 / den);
+    } else {
+      T* out = static_cast<T*>(a.o) + orow * D;
+      store(out + col, x0 / den);
+      store(out + col + 1, x1 / den);
+    }
   }
 }
 
@@ -396,8 +421,9 @@ cudaError_t dispatch(const Args& a, int B, cudaStream_t stream) {
 // scratch. q, k, v, o are float32 (bf16 = 0) or bfloat16 (bf16 = 1);
 // D % 16 == 0, D <= 256, Sq * (H / Hkv) <= 16, split_len == 64 and
 // n_splits == ceil(T / 64); strides and base addresses multiples of 16
-// bytes. Launches both passes on `stream` without synchronising; returns
-// the first nonzero cudaError_t (0 = launched).
+// bytes. lse: (B, Sq, H) float32 or null, each row's log-sum-exp; o_f32:
+// o is float32 whatever q's type. Launches both passes on `stream` without
+// synchronising; returns the first nonzero cudaError_t (0 = launched).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* o,
                                    const int32_t* kv_pos,
@@ -406,6 +432,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int window, int q_offset, float scale,
                                    int bf16, int split_len, int n_splits,
                                    float* part_ml, float* part_acc,
+                                   float* lse, int o_f32,
                                    int device, void* stream) {
   if (D <= 0 || D % 16 != 0 || D > 256 || Hkv <= 0 || H % Hkv != 0 ||
       B <= 0 || Sq <= 0 || T <= 0 || Sq * (H / Hkv) > kMaxRows ||
@@ -421,6 +448,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   a.kv_pos = kv_pos;
   a.part_ml = part_ml;
   a.part_acc = part_acc;
+  a.lse = lse;
+  a.o_f32 = o_f32;
   a.q_sb = strides[0];
   a.q_ss = strides[1];
   a.q_sh = strides[2];
@@ -444,4 +473,37 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = bf16 ? dispatch<__nv_bfloat16>(a, B, st) : dispatch<float>(a, B, st);
   return static_cast<int>(err);
+}
+
+// The merge of n slices' decode attention (pass 2 alone): part_ml
+// (B, Hkv, n, Sq*g, 2) holds each slice's (lse, 1) and part_acc
+// (B, Hkv, n, Sq*g, D) its float32 output, in the layout pass 1 writes;
+// o: contiguous (B, Sq, H, D), float32 (bf16 = 0) or bfloat16 (bf16 = 1).
+// D % 2 == 0, Sq * (H / Hkv) <= 16. Returns the launch's cudaError_t.
+extern "C" int flash_decode_merge_launch(float* part_ml, float* part_acc,
+                                         void* o, int B, int Sq, int H,
+                                         int Hkv, int D, int n, int bf16,
+                                         int device, void* stream) {
+  if (D <= 0 || D % 2 != 0 || Hkv <= 0 || H % Hkv != 0 || B <= 0 ||
+      Sq <= 0 || n <= 0 || Sq * (H / Hkv) > kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Args a = {};
+  a.o = o;
+  a.part_ml = part_ml;
+  a.part_acc = part_acc;
+  a.Sq = Sq;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.D = D;
+  a.g = H / Hkv;
+  a.n_splits = n;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(Sq * a.g, Hkv, B);
+  if (bf16)
+    decode_combine_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(a);
+  else
+    decode_combine_kernel<float><<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,10 @@ call by ``launch_plan`` from dtype and shape alone:
 
 * ``"split"`` — decode, Sq·g ≤ 16 query rows, bf16 or float32:
   ``csrc/flash_decode.cu``, split-KV in two launches (partials per 64-key
-  split into float32 scratch allocated here, then a combine);
+  split into float32 scratch allocated here, then a combine); with
+  ``with_lse`` the combine also writes each row's log-sum-exp and the
+  output in float32, for ``decode_merge``: the merge of the slices of a
+  cache split over ranks, which is the combine launch alone;
 * ``"tc"`` — bf16 prefill (Sq·g > 16) at head dims 64, 128 and 256:
   ``csrc/flash_prefill_sm90.cu``, ``wgmma`` on the tensor cores fed by TMA;
 * ``"tc32"`` — float32 prefill at head dims 64, 128 and 256:
@@ -156,18 +159,26 @@ def _dense(x: torch.Tensor, elems: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int, q_offset: int, scale: float,
                     kv_positions: torch.Tensor | None,
-                    plan: LaunchPlan) -> torch.Tensor:
+                    plan: LaunchPlan, with_lse: bool = False):
     """q (B, Sq, H, D), k/v (B, T, Hkv, D) CUDA tensors of one dtype in
     ``DTYPES``, read through their strides; ``kv_positions`` a (T,) int32
     CUDA tensor or None → (B, Sq, H, D) contiguous in q's dtype, launched on
     the current stream by ``plan``'s route. A tensor whose strides the
-    route cannot read in place is copied to contiguous first."""
+    route cannot read in place is copied to contiguous first. With
+    ``with_lse`` (the ``split`` route only) → (out in float32, lse
+    (B, Sq, H) float32)."""
     _check_route(plan.route, q)
+    if with_lse and plan.route != "split":
+        raise ValueError(f"the log-sum-exp comes from the split route, "
+                         f"not {plan.route}")
     q, k, v = (x if _aligned(x, plan.align) else x.contiguous()
                for x in (q, k, v))
     b, sq, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=torch.float32 if with_lse
+                      else q.dtype, device=q.device)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     strides = (ctypes.c_longlong * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     pos_ptr = None if kv_positions is None else kv_positions.data_ptr()
@@ -182,9 +193,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ml = torch.empty(plan.ml_shape, dtype=torch.float32, device=q.device)
         acc = torch.empty(plan.acc_shape, dtype=torch.float32,
                           device=q.device)
-        rc = lib.flash_decode_launch(*head, bf16, SPLIT_KEYS, plan.n_splits,
-                                     ml.data_ptr(), acc.data_ptr(), device,
-                                     stream)
+        rc = lib.flash_decode_launch(
+            *head, bf16, SPLIT_KEYS, plan.n_splits, ml.data_ptr(),
+            acc.data_ptr(), None if lse is None else lse.data_ptr(),
+            int(with_lse), device, stream)
     elif plan.route == "tc":
         rc = lib.flash_prefill_sm90_launch(*head, device, stream)
     elif plan.route == "tc32":
@@ -195,6 +207,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(
             f"flash_attention {plan.route} kernel launch failed (cudaError "
             f"{rc}) at B={b} Sq={sq} T={t} H={h} Hkv={hkv} D={d} {q.dtype}")
+    return (out, lse) if with_lse else out
+
+
+def decode_merge(outs: torch.Tensor, lses: torch.Tensor,
+                 dtype: torch.dtype, hkv: int) -> torch.Tensor:
+    """n slices' outputs (n, B, Sq, H, D) and log-sum-exps (n, B, Sq, H),
+    float32 CUDA tensors from ``flash_attention(..., with_lse=True)`` →
+    (B, Sq, H, D) contiguous in ``dtype``, by the combine launch of
+    ``csrc/flash_decode.cu`` over the slices laid out as its splits
+    ((lse, 1) and the output: a copy in torch of n·B·Sq·H·(D + 2)
+    floats)."""
+    n, b, sq, h, d = outs.shape
+    g = h // hkv
+    # (n, B, Sq, Hkv, g, ·) → (B, Hkv, n, Sq, g, ·): the splits' layout
+    acc = outs.reshape(n, b, sq, hkv, g, d).permute(1, 3, 0, 2, 4, 5) \
+        .contiguous()
+    ml = torch.stack([lses, torch.ones_like(lses)], dim=-1).reshape(
+        n, b, sq, hkv, g, 2).permute(1, 3, 0, 2, 4, 5).contiguous()
+    out = torch.empty((b, sq, h, d), dtype=dtype, device=outs.device)
+    rc = _build.load().flash_decode_merge_launch(
+        ml.data_ptr(), acc.data_ptr(), out.data_ptr(), b, sq, h, hkv, d, n,
+        int(dtype == torch.bfloat16), outs.device.index,
+        torch.cuda.current_stream(outs.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash decode merge launch failed (cudaError "
+                           f"{rc}) at n={n} B={b} Sq={sq} H={h} D={d}")
     return out
 
 

@@ -55,7 +55,8 @@ LAUNCHES = {"pairwise_l2_threshold": 0, "verify_pairs_batch": 0,
             "flash_attention": 0,
             **{c: 0 for c in _flash_kernel.ROUTE_COUNTERS.values()},
             "flash_attention_bwd": 0,
-            **{c: 0 for c in _flash_kernel.BWD_ROUTE_COUNTERS.values()}}
+            **{c: 0 for c in _flash_kernel.BWD_ROUTE_COUNTERS.values()},
+            "flash_decode_merge": 0}
 _LAUNCHES_LOCK = threading.Lock()
 # hook(counter, kernel, shape, dtype, route[, mask]), set by
 # launch.op_cost.OpCost for the census of one step; None (no cost at all)
@@ -343,7 +344,50 @@ def gqa_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int = 0,
     return grads
 
 
-def _launch_flash(q, k, v, **kw) -> torch.Tensor:
+def gqa_attention_lse(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset: int = 0, kv_positions=None):
+    """``gqa_attention`` of one slice of a decode cache, for
+    ``decode_merge`` → (out (B, Sq, H, D) float32, lse (B, Sq, H)
+    float32; a row that sees no key has lse −∞). On CUDA the ``split``
+    route with its log-sum-exp (``csrc/flash_decode.cu``; another route
+    raises), counted as a ``gqa_attention`` launch; on the CPU
+    ``ref.gqa_attention_lse``. No gradient: decode only."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _attn_operand(x, name)
+    b, sq, h, d = q.shape
+    dev = _same_device(q, k, v, *(() if kv_positions is None
+                                  else (kv_positions,)))
+    if dev.type == "cpu":
+        return ref.gqa_attention_lse(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset,
+                                     kv_positions=kv_positions)
+    _check_kernel_operands(q, k, v)
+    if kv_positions is not None:
+        kv_positions = kv_positions.to(torch.int32).contiguous()
+    return _launch_flash(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, scale=d ** -0.5,
+                         kv_positions=kv_positions, with_lse=True)
+
+
+def decode_merge(outs, lses, dtype: torch.dtype, hkv: int) -> torch.Tensor:
+    """The merge of n slices' ``gqa_attention_lse``: outs (n, B, Sq, H, D),
+    lses (n, B, Sq, H) → (B, Sq, H, D) in ``dtype``, each slice weighted
+    exp(lse_r − lse). On CUDA the combine launch of ``csrc/flash_decode.cu``
+    (``flash_attention.decode_merge``), counted under
+    ``flash_decode_merge``; on the CPU ``ref.decode_merge``."""
+    if outs.device.type == "cpu":
+        return ref.decode_merge(outs, lses).to(dtype)
+    out = _flash_kernel.decode_merge(outs.to(torch.float32),
+                                     lses.to(torch.float32), dtype, hkv)
+    count_launch("flash_decode_merge")
+    if COST_HOOK is not None:
+        n, b, sq, h, d = outs.shape
+        COST_HOOK("flash_decode_merge", "flash_decode_merge",
+                  (n, b, sq, h, d), dtype_name(dtype), "split")
+    return out
+
+
+def _launch_flash(q, k, v, **kw):
     """Launch the route ``launch_plan`` picks for (B, S, H, D) operands and
     count the call, once in all and once under its route."""
     b, sq, h, d = q.shape

@@ -99,6 +99,45 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype).reshape(b, sq, h, d)
 
 
+def gqa_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int = 0, q_offset: int = 0,
+                      kv_positions: torch.Tensor | None = None):
+    """``gqa_attention`` of one slice of a cache, for a merge over slices:
+    (out (B, Sq, H, D) float32, lse (B, Sq, H) float32), lse the log of
+    the softmax's sum over the keys the row sees (scaled scores); a row
+    that sees no key has lse −∞ and out 0, so the merge gives it no
+    weight."""
+    b, sq, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kv_pos = (torch.arange(t, device=q.device) if kv_positions is None
+              else kv_positions.to(q.device))
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                     k.to(torch.float32)) * (d ** -0.5)
+    mask = gqa_mask(sq, kv_pos, causal=causal, window=window,
+                    q_offset=q_offset)
+    s = torch.where(mask, s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                      # (b, k, g, q)
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isinf(lse), 0.0, lse)[..., None]), 0.0)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return (out.reshape(b, sq, h, d),
+            lse.permute(0, 3, 1, 2).reshape(b, sq, h))
+
+
+def decode_merge(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Slices' attention merged: outs (n, B, Sq, H, D) and lses
+    (n, B, Sq, H) float32 from ``gqa_attention_lse`` → (B, Sq, H, D)
+    float32, each slice weighted exp(lse_r − lse), lse the slices' joint
+    log-sum-exp; a slice with lse −∞ has weight 0."""
+    top = torch.amax(lses, dim=0)
+    top = torch.where(torch.isinf(top), 0.0, top)
+    w = torch.exp(lses - top)                             # 0 where −∞
+    den = torch.clamp_min(w.sum(0), 1e-30)
+    return (w[..., None] * outs).sum(0) / den[..., None]
+
+
 def gqa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, dout: torch.Tensor, *, causal: bool,
                       window: int = 0, q_offset: int = 0,

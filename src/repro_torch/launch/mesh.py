@@ -7,8 +7,9 @@ does, so its call sites (``mesh.shape["data"]``) carry across unchanged.
 Rank r sits at the row-major coordinates of r over the axes (the last axis
 varies fastest, as ``jax.make_mesh`` lays devices out). The mesh holds one
 process group per axis and per axis tuple the sharding rules name (the
-``"batch"`` rule's ``("pod", "data")``), and wraps the collectives the port
-uses, over named axes.
+``"batch"`` rule's ``("pod", "data")``), makes one for any other tuple of
+axes at its first collective, and wraps the collectives the port uses,
+over named axes.
 
 **Transport.** NCCL moves CUDA tensors where they are. Under gloo, tensors
 travel through host memory: a CUDA tensor is copied to the host, exchanged
@@ -26,6 +27,25 @@ rank, world, init_method=...)``); ``spawn`` starts a world of processes on
 this host (gloo over the loopback device), with a deadline. The backend is always
 the caller's choice.
 
+**The fake world** (``init_fake_world``): the dry-run (``launch/dryrun.py``)
+runs one rank of a 256- or 512-rank mesh on one card, in a process group of
+torch's ``"fake"`` backend, in which no other rank exists. Under it the
+mesh moves nothing: every collective's output is made from this rank's own
+part (a sum is its input, a gather repeats it), so its values are finite
+and its shapes, launches, FLOPs, bytes and memory are real, while its
+values are not. A fake mesh keeps tensors where they are, as NCCL does.
+
+**The tally.** Inside ``with mesh.tallying() as tally:``, every collective
+the mesh issues over more than one rank, under any backend, appends an
+entry to ``tally``: its kind (the post-SPMD HLO's name for it), the axes,
+the group size, the payload bytes, the dtype and whether the group lies
+inside one node. Outside such a scope (training, the join) a collective
+records nothing. It is the counterpart of the
+collective ops of the reference's compiled program, and
+``launch/collectives.py::collective_bytes`` prices it. A reduce onto one
+rank counts as a reduce-scatter and a broadcast as an all-gather (the ring
+traffic of each is bytes × (n−1)/n); a send as a collective-permute.
+
 ``make_production_mesh`` is a function, so importing this module touches no
 process group. Single pod: (16, 16) = 256 ranks, ("data", "model");
 multi-pod: (2, 16, 16) = 512 ranks with an outer "pod" axis of pure data
@@ -33,6 +53,7 @@ parallelism.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing
@@ -48,8 +69,19 @@ import torch
 import torch.distributed as dist
 
 # axis tuples that get a process group of their own beside the single axes
-# (the "batch" rule shards over pod and data jointly)
+# (the "batch" rule shards over pod and data jointly); others get one at
+# first use
 JOINT_AXES = (("pod", "data"),)
+FAKE = "fake"
+# ranks of one node (a DGX H100's eight cards): a collective's group lies
+# inside a node when its ranks lie in one block of this many consecutive
+# ranks; an assumption of the deployment, as the roofline's link rates are
+NODE_RANKS = 8
+# the HLO name of each dtype a collective carries
+_HLO_DTYPES = {torch.bfloat16: "bf16", torch.float16: "f16",
+               torch.float32: "f32", torch.float64: "f64",
+               torch.int64: "s64", torch.int32: "s32", torch.int8: "s8",
+               torch.uint8: "u8", torch.bool: "pred"}
 
 
 def init_distributed(rank: Optional[int] = None, world: Optional[int] = None,
@@ -72,6 +104,25 @@ def init_distributed(rank: Optional[int] = None, world: Optional[int] = None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _fake_process_group(store, rank, size, timeout):
+    from torch._C._distributed_c10d import FakeProcessGroup
+    make = getattr(FakeProcessGroup, "_create_internal", None)
+    return make(rank, size) if make is not None else \
+        FakeProcessGroup(rank, size)
+
+
+def init_fake_world(world: int, rank: int = 0) -> None:
+    """Join a process group of torch's ``"fake"`` backend as ``rank`` of
+    ``world``: no other process exists and no collective moves data (the
+    dry-run's one rank of a production mesh; module docstring). The backend
+    is registered here, as torch's own test helper registers it."""
+    if FAKE not in getattr(dist.Backend, "_plugins", {}):
+        dist.Backend.register_backend(FAKE, _fake_process_group,
+                                      devices=["cpu", "cuda"])
+    dist.init_process_group(FAKE, rank=rank, world_size=world,
+                            store=dist.HashStore())
 
 
 def _ordered_groups(shape: dict, axes: tuple) -> list[list[int]]:
@@ -135,8 +186,11 @@ class Mesh:
             self.rank, list(self.shape.values()))))
         self.device = resolve_device(device)
         self.backend = str(dist.get_backend())
-        self.transport = "device" if self.backend == "nccl" else "host"
-        if self.transport == "device" and self.device.type != "cuda":
+        self.fake = self.backend == FAKE
+        self.transport = ("device" if self.backend in ("nccl", FAKE)
+                          else "host")
+        self.tally: Optional[list[dict]] = None   # None: not recording
+        if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an nccl mesh computes on CUDA")
         self._groups: dict[tuple, tuple] = {}
         keys = [(a,) for a in self.axis_names]
@@ -169,10 +223,12 @@ class Mesh:
         return tuple(a for a in self.axis_names if a in axes)
 
     def _axes(self, axes) -> tuple:
+        """``axes`` in mesh order, with a process group over them: one made
+        at first use for a tuple outside ``JOINT_AXES`` (every rank reaches
+        it in the same order, as SPMD code does)."""
         axes = self._order(axes)
         if axes and axes not in self._groups:
-            raise ValueError(f"no process group over {axes}: the mesh "
-                             f"has {sorted(self._groups)}")
+            self._make_groups(axes)
         return axes
 
     def axis_size(self, axes) -> int:
@@ -193,6 +249,30 @@ class Mesh:
         alone that has none (a collective over it is the identity). The
         group over every axis is the default group, at world size 1 too."""
         return self._groups[axes][0] if axes else None
+
+    # -- the tally ---------------------------------------------------------
+    @contextlib.contextmanager
+    def tallying(self):
+        """Record the collectives issued inside the scope: yields the list
+        their entries are appended to."""
+        prev, self.tally = self.tally, []
+        try:
+            yield self.tally
+        finally:
+            self.tally = prev
+
+    def _count(self, kind: str, axes: tuple, t: torch.Tensor,
+               copies: int = 1) -> None:
+        """An entry for a collective whose payload is ``copies`` times
+        ``t``'s bytes, where a tally is recording."""
+        if self.tally is None:
+            return
+        ranks = self.group_ranks(axes) if axes else [self.rank]
+        self.tally.append({
+            "kind": kind, "axes": list(axes), "n": len(ranks),
+            "bytes": copies * t.numel() * t.element_size(),
+            "dtype": _HLO_DTYPES.get(t.dtype, "f32"),
+            "intra_node": len({r // NODE_RANKS for r in ranks}) == 1})
 
     # -- transport ---------------------------------------------------------
     def _wire(self, t: torch.Tensor, reduce: bool = False) -> torch.Tensor:
@@ -219,6 +299,9 @@ class Mesh:
         axes = self._axes(axes)
         if self._group(axes) is None:
             return t.clone()
+        self._count("all-reduce", axes, t)
+        if self.fake:
+            return t.clone()
         w = self._wire(t, reduce=True).clone()
         dist.all_reduce(w, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self._group(axes))
@@ -232,6 +315,9 @@ class Mesh:
         n = self.axis_size(axes)
         if self._group(axes) is None:
             return t.clone()
+        self._count("all-gather", axes, t, n)
+        if self.fake:   # every part this rank's own
+            return torch.cat([t] * n, dim=dim)
         w = self._wire(t.movedim(dim, 0))
         if self.transport == "host":   # gloo: the list form
             parts = [torch.empty_like(w) for _ in range(n)]
@@ -266,6 +352,9 @@ class Mesh:
         n = self.axis_size(axes)
         if self._group(axes) is None:
             return t.clone()
+        self._count("reduce-scatter", axes, t)
+        if self.fake:
+            return t.chunk(n, dim)[self.axis_index(axes)].clone()
         w = self._wire(t.movedim(dim, 0), reduce=True)
         if self.transport == "host":   # gloo: a sum, then this rank's part
             w = w.clone()
@@ -282,6 +371,9 @@ class Mesh:
         axes = self._axes(axes)
         if self._group(axes) is None:
             return t.clone()
+        self._count("reduce-scatter", axes, t)
+        if self.fake:
+            return t.clone()
         w = self._wire(t, reduce=True).clone()
         dist.reduce(w, dst=self.group_ranks(axes)[dst],
                     group=self._group(axes))
@@ -293,6 +385,9 @@ class Mesh:
         axes = self._axes(axes)
         if self._group(axes) is None:
             return t
+        self._count("all-gather", axes, t)
+        if self.fake:   # the rank's own buffer, made finite
+            return t if self.axis_index(axes) == src else torch.zeros_like(t)
         w = self._wire(t).clone()
         dist.broadcast(w, src=self.group_ranks(axes)[src],
                        group=self._group(axes))
@@ -304,6 +399,9 @@ class Mesh:
         axes = self._axes(axes)
         if self._group(axes) is None:
             return t.clone()
+        self._count("all-to-all", axes, t)
+        if self.fake:
+            return t.clone()
         w = self._wire(t)
         out = torch.empty_like(w)
         dist.all_to_all_single(out, w, group=self._group(axes))
@@ -312,17 +410,22 @@ class Mesh:
     def send(self, t: torch.Tensor, axes, dst: int) -> None:
         """To the rank at index ``dst`` along ``axes`` (its ``recv`` must
         be posted)."""
-        dist.send(self._wire(t), dst=self.group_ranks(axes)[dst])
+        self._count("collective-permute", self._axes(axes), t)
+        if not self.fake:
+            dist.send(self._wire(t), dst=self.group_ranks(axes)[dst])
 
     def recv(self, like: torch.Tensor, axes, src: int) -> torch.Tensor:
         """From the rank at index ``src`` along ``axes``, into a tensor of
         ``like``'s shape, dtype and device."""
+        if self.fake:
+            return torch.zeros_like(like)
         w = self._wire(torch.empty_like(like))
         dist.recv(w, src=self.group_ranks(axes)[src])
         return self._back(w, like)
 
     def barrier(self) -> None:
-        dist.barrier()
+        if not self.fake:
+            dist.barrier()
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:

@@ -9,7 +9,9 @@ executed step on the card (``launch/census.py``):
                     a 3×TF32 route as three TF32 products)
   memory term     = (counted bytes + one pass over the live arguments)
                     / HBM's rate
-  collective term = 0 (one card, no link)
+  collective term = Σ over the step's collectives of their traffic
+                    (``launch/collectives.py``) / the rate of the link the
+                    group crosses (``collective_seconds``); 0 on one card
 
 The step-time lower bound is max(terms) (perfect overlap), and
 
@@ -55,6 +57,14 @@ PEAK_BF16_FLOPS = 989e12    # bf16 on the tensor cores, dense
 PEAK_TF32_FLOPS = 494.7e12  # TF32 on the tensor cores, dense
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # HBM3
+
+# Per-GPU link rates of a DGX H100 deployment, one direction: ASSUMPTIONS
+# from NVIDIA's DGX H100 datasheet, not measurements (nothing here has run
+# across cards). NVLink 4 inside a node of 8 cards; one 400 Gb/s NDR
+# InfiniBand port a card across nodes. Which groups lie inside a node is the
+# mesh's to say (``launch.mesh.NODE_RANKS``, each entry's ``intra_node``).
+LINK_NVLINK_BYTES = 450e9
+LINK_IB_BYTES = 50e9
 
 # FLOP classes of a census: a torch dtype's name, or "tf32x3" for products
 # that a 3×TF32 kernel route runs as three TF32 products
@@ -149,7 +159,17 @@ def kernel_cost(name: str, shape, dtype: str = "float32", route: str = "tc",
       operand read once, d² (float32) and the mask (one byte) written once.
     * ``"bucket_assign"``, shape (M, B, d): X·Cᵀ; bytes: X and the centers
       read once, (d², index) written once.
+    * ``"flash_decode_merge"``, shape (n, B, Sq, H, D): n slices' float32
+      outputs weighted and summed (2 FLOPs an element); bytes: the outputs
+      and log-sum-exps read once, the merged output written once.
     """
+    if name == "flash_decode_merge":
+        n, b, sq, h, d = shape
+        flops = 2.0 * n * b * sq * h * d
+        return {"flops": {"float32": flops},
+                "bytes": 4.0 * n * b * sq * h * (d + 1)
+                + _ITEMSIZE[dtype] * b * sq * h * d,
+                "plain_flops": 0}
     if name in ("flash_attention", "flash_attention_bwd"):
         b, sq, t, h, hkv, d = shape
         visible = sq * t if visible is None else visible
@@ -183,6 +203,16 @@ def kernel_cost(name: str, shape, dtype: str = "float32", route: str = "tc",
     raise KeyError(f"no cost formula for kernel {name!r}")
 
 
+def collective_seconds(tally: list[dict]) -> float:
+    """Least time of a step's collectives (``launch.mesh.Mesh.tally``):
+    each op's traffic over the assumed rate of its link (NVLink inside a
+    node, InfiniBand across), one after another."""
+    from repro_torch.launch.collectives import op_traffic
+    return sum(op_traffic(e["kind"], e["bytes"], e["n"])
+               / (LINK_NVLINK_BYTES if e["intra_node"] else LINK_IB_BYTES)
+               for e in tally)
+
+
 def model_flops_per_device(rec: dict) -> float:
     n = rec["active_params"]
     tokens = rec["tokens"]
@@ -203,7 +233,7 @@ def roofline_terms(rec: dict) -> dict | None:
     live = rec.get("live_bytes", 0)
     t_c = flop_seconds(c["work_flops_by_dtype"])
     t_m = (c["bytes"] + max(live, 0)) / PEAK_BYTES
-    t_x = 0.0   # one card: no collective link
+    t_x = rec.get("collective_s", 0.0)   # 0 on one card: no link
     dominant = max((t_c, "compute"), (t_m, "memory"), (t_x, "collective"))
     mf = model_flops_per_device(rec)
     t_model = mf / PEAK_BF16_FLOPS

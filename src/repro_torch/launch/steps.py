@@ -5,7 +5,8 @@ mesh, on this rank's rows of the global batch and the parameters' parts
 (``dist.sharding.ShardedParams``).
 ``make_serve_step``: one decode step against the caches.
 ``prepare_cell``: one (arch × shape) cell's step and its arguments on one
-card, the counterpart of the reference's ``lower_cell``.
+card, or as one rank of a mesh, the counterpart of the reference's
+``lower_cell``.
 ``batch_shardings``, ``cache_shardings``, ``opt_state_shardings``: the
 reference's sharding trees, as ``dist.sharding.NamedSharding``s with its
 spec entries.
@@ -31,7 +32,8 @@ from repro_torch.train.optimizer import AdamW, AdamWConfig
 POD_CHIPS = 256
 
 
-def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None):
+def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None,
+                    batch_axes=None):
     """train_step(params, opt_state, batch) → (params, opt_state, metrics):
     the loss and its gradient with respect to every parameter (the
     parameters are set to require grad here: they are built without), then
@@ -44,9 +46,11 @@ def make_train_step(bundle: ModelBundle, opt: AdamW, mesh=None):
     loss, the token mean over the whole batch plus the mean aux loss; the
     gradients come back onto the parts summed over those axes, and AdamW
     updates the parts (its clip norm and the int8 compressor's scales
-    reduced over the mesh)."""
+    reduced over the mesh). ``batch_axes``, where given, says the batch is
+    already this rank's rows, split over those axes (the dry-run makes
+    only its own rows)."""
     if mesh is not None:
-        return _sharded_train_step(bundle, opt, mesh)
+        return _sharded_train_step(bundle, opt, mesh, batch_axes)
 
     def train_step(params, opt_state, batch):
         params.requires_grad_(True)
@@ -76,16 +80,22 @@ def local_rows(mesh, batch: dict) -> tuple[dict, tuple]:
     return {k: v.chunk(n, 0)[i] for k, v in batch.items()}, axes
 
 
-def _sharded_train_step(bundle: ModelBundle, opt: AdamW, mesh):
+def _sharded_train_step(bundle: ModelBundle, opt: AdamW, mesh,
+                        batch_axes=None):
     def train_step(params, opt_state, batch):
-        local, axes = local_rows(mesh, batch)
+        if batch_axes is None:
+            local, axes = local_rows(mesh, batch)
+        else:
+            local, axes = batch, tuple(batch_axes)
         params.batch_axes = axes
         params.requires_grad_(True)
         labels = torch.as_tensor(local["labels"], device=mesh.device)
         count = (labels[:, 1:] >= 0).sum().to(torch.float32)
         total = mesh.all_reduce(count, axes)
         names, tensors = zip(*params.named_parameters())
-        with torch.enable_grad():
+        # the split over ``model`` holds for the backward pass too (remat
+        # recomputes split blocks)
+        with torch.enable_grad(), params.scope(train=True):
             _, metrics = params.loss(bundle, local)
             nll = metrics["nll"]
             aux = metrics.get("aux", torch.zeros_like(nll))
@@ -136,8 +146,10 @@ def fill_cache_positions(bundle: ModelBundle, caches, pos: int) -> None:
     its length), and the next write lands at ``pos``. The keys and values
     stay as allocated (zeros): a step's work does not depend on them."""
     for c in _attn_caches(bundle, caches):
-        steps = c["kpos"].shape[0]
-        slot = torch.arange(steps, dtype=torch.int64)
+        local = c["kpos"].shape[0]
+        _, n, i = c.get("seq_shard", ((), 1, 0))
+        steps = local * n   # the rows of a cache split over its sequence
+        slot = i * local + torch.arange(local, dtype=torch.int64)
         last = slot + steps * torch.div(pos - 1 - slot, steps,
                                         rounding_mode="floor")
         c["kpos"].copy_(torch.where(slot < pos, last, -1).to(torch.int32))
@@ -152,8 +164,40 @@ def _reset_positions(bundle: ModelBundle, caches, pos: int) -> None:
         caches["pos"] = pos
 
 
+def decode_rules(shape: ShapeSpec) -> dict:
+    """The reference's decode rule (``lower_cell``): a cache's rows over
+    ``model``, or over ``data`` and ``model`` at batch 1."""
+    if shape.kind != "decode":
+        return {}
+    return {"cache_seq": (("data", "model") if shape.global_batch == 1
+                          else ("model",))}
+
+
+def seq_shard_of(mesh, steps: int):
+    """(axes, n, i) of a cache of ``steps`` rows under the ``cache_seq``
+    rule on ``mesh``; None where the rule leaves it whole."""
+    entry = shd.logical_spec(mesh, (steps,), "cache_seq").spec[0]
+    if entry is None:
+        return None
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    return axes, mesh.axis_size(axes), mesh.axis_index(axes)
+
+
+def _in_rules(fn, mesh, rules: dict):
+    """``fn`` called with the mesh and the rules installed."""
+    def run(*args):
+        with shd.axis_rules(**rules):
+            shd.set_mesh(mesh)
+            try:
+                return fn(*args)
+            finally:
+                shd.set_mesh(None)
+    return run
+
+
 def prepare_cell(bundle: ModelBundle, shape: ShapeSpec, *, device=None,
-                 generator: torch.Generator):
+                 generator: torch.Generator, mesh=None, fsdp: bool = False,
+                 extra_rules=None):
     """One cell on one card → (step, args, {"kind": ...}): ``step(*args)``
     runs the cell's step once (repeatable).
 
@@ -172,10 +216,23 @@ def prepare_cell(bundle: ModelBundle, shape: ShapeSpec, *, device=None,
       ``"serve_step"``. Enc-dec caches carry zero cross-attention K/V over
       the encoder's frames, as the reference's cache stand-ins do.
 
-    ``device``, where given, must be the bundle's."""
+    ``device``, where given, must be the bundle's.
+
+    With ``mesh``, the cell is one rank of it, as the reference's
+    ``lower_cell`` shards it: the decode rule (``decode_rules``) and
+    ``extra_rules`` installed; the rank's rows of the global batch
+    (``batch_shardings``), made here alone; the parameters' parts
+    (``ShardedParams``, ``fsdp`` as the reference's) with the compute
+    split over ``model``; AdamW over the parts; the rank's slice of each
+    cache (``cache_shardings``: rows by ``cache_seq``). The step installs
+    the rules and the mesh around every call. → (step, args, info) with
+    ``info["rows"]``, the rank's rows, split over ``info["batch_axes"]``."""
     if device is not None and torch.device(device).type != \
             bundle.device.type:
         raise ValueError(f"bundle lives on {bundle.device}, not {device}")
+    if mesh is not None:
+        return _prepare_sharded(bundle, shape, mesh, generator, fsdp,
+                                extra_rules)
     cfg = bundle.cfg
     run = dataclasses.replace(shape, global_batch=per_card_batch(shape))
     seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
@@ -205,6 +262,54 @@ def prepare_cell(bundle: ModelBundle, shape: ShapeSpec, *, device=None,
 
     return serve_step, (params, caches, batch["tokens"]), \
         {"kind": "serve_step"}
+
+
+def _prepare_sharded(bundle: ModelBundle, shape: ShapeSpec, mesh,
+                     generator: torch.Generator, fsdp: bool, extra_rules):
+    cfg = bundle.cfg
+    rules = dict(decode_rules(shape))
+    rules.update(extra_rules or {})
+    with shd.axis_rules(**rules):
+        axes = shd.batch_axes_of(mesh, shape.global_batch)
+        rows = shape.global_batch // mesh.axis_size(axes)
+        run = dataclasses.replace(shape, global_batch=rows)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+        store = shd.ShardedParams(bundle.init(seed), mesh, fsdp=fsdp,
+                                  batch_rows=shape.global_batch)
+        batch = fill_inputs(bundle.input_specs(run), cfg.vocab, generator,
+                            bundle.device)
+    info = {"batch_axes": axes, "rows": rows}
+    if shape.kind == "train":
+        opt = AdamW(AdamWConfig())
+        step = make_train_step(bundle, opt, mesh, batch_axes=axes)
+        return (_in_rules(step, mesh, rules),
+                (store, opt.init(store), batch), dict(info, kind="train_step"))
+    if shape.kind == "prefill":
+        def prefill_step(store, batch):
+            with torch.inference_mode():
+                return store.call(bundle.prefill, batch)
+        return (_in_rules(prefill_step, mesh, rules), (store, batch),
+                dict(info, kind="prefill_step"))
+    pos = shape.seq_len - 1
+
+    def make_caches(model):
+        shards = (lambda steps: seq_shard_of(mesh, steps))
+        if cfg.enc_dec:
+            return bundle.init_cache(rows, shape.seq_len, params=model,
+                                     seq_shards=shards)
+        return bundle.init_cache(rows, shape.seq_len, seq_shards=shards)
+
+    with torch.no_grad():
+        caches = _in_rules(store.call, mesh, rules)(make_caches)
+    fill_cache_positions(bundle, caches, pos)
+
+    def serve_step(store, caches, tokens):
+        _reset_positions(bundle, caches, pos)
+        with torch.inference_mode():
+            return store.call(bundle.decode, tokens, caches)
+
+    return (_in_rules(serve_step, mesh, rules),
+            (store, caches, batch["tokens"]), dict(info, kind="serve_step"))
 
 
 # ---------------------------------------------------------------------------

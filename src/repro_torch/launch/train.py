@@ -8,7 +8,9 @@ same options, plus ``--device``).
 
 ``--smoke`` trains the reduced config. Under ``torchrun`` (one process a
 rank) it trains on the mesh (world // model_axis, model_axis) ("data",
-"model"), with NCCL on the card or gloo on the CPU (by ``--device``):
+"model"), with NCCL on the card or gloo on the CPU (by ``--device``); the
+ranks of a ``model`` group split each block's compute between them
+(``dist.tensor_parallel``: heads, MLP columns, experts, the vocabulary):
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen3-0.6b --smoke --device cpu --model-axis 2

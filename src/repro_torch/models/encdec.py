@@ -7,7 +7,9 @@ positions. Decoder: causal self-attention with learned positions, then
 cross-attention to the encoder output; decode caches the self-attention
 K/V and the cross-attention K/V, computed once from ``enc_out``. Logits
 come from the embedding table. Every attention goes through
-``kernels.ops.gqa_attention``.
+``kernels.ops.gqa_attention``. On a mesh the attention and MLP split
+over ``model`` as ``layers`` splits them, and the vocabulary as the
+decoder-only LM's (``transformer.embed_lookup``, ``vocab_logits``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import embed_lookup, vocab_logits
 
 
 class EncoderLayer(nn.Module):
@@ -91,8 +94,8 @@ def encode(model: EncDec, frames) -> torch.Tensor:
 
 def _embed(model: EncDec, tokens, pos0: int) -> torch.Tensor:
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=model.device)
-    return model.embed[tokens] + model.pos_embed[
-        None, pos0:pos0 + tokens.shape[1]]
+    return embed_lookup(model.embed, tokens, model.cfg.vocab) + \
+        model.pos_embed[None, pos0:pos0 + tokens.shape[1]]
 
 
 def decode_train(model: EncDec, tokens, enc_out: torch.Tensor
@@ -110,22 +113,27 @@ def decode_train(model: EncDec, tokens, enc_out: torch.Tensor
 
 def logits(model: EncDec, hidden: torch.Tensor) -> torch.Tensor:
     """Logits from the embedding table (the head is tied)."""
-    return hidden @ model.embed.T
+    return vocab_logits(hidden, model.embed, model.cfg.vocab, 0)
 
 
 def init_decode_cache(model: EncDec, batch: int, max_seq: int,
-                      enc_out: Optional[torch.Tensor] = None) -> dict:
-    """Self-attention caches, and each layer's cross-attention K/V computed
-    once from ``enc_out`` (zeros over n_frames when it is None)."""
+                      enc_out: Optional[torch.Tensor] = None,
+                      seq_shard=None) -> dict:
+    """Self-attention caches (split over their rows by ``seq_shard``, as
+    ``layers.init_attn_cache``), and each layer's cross-attention K/V
+    computed once from ``enc_out`` (zeros over n_frames when it is None),
+    of the KV heads the rank's query heads read."""
     cfg = model.cfg
     caches = {"self": [], "cross_k": [], "cross_v": [], "pos": 0}
     for lp in model.decoder:
         caches["self"].append(L.init_attn_cache(cfg, batch, max_seq,
-                                                device=model.device))
+                                                device=model.device,
+                                                seq_shard=seq_shard))
         if enc_out is not None:
             k, v = lp.cross_attn.keys_values(enc_out)
         else:
-            k = torch.zeros((batch, cfg.encoder.n_frames, cfg.n_kv_heads,
+            k0, k1 = lp.cross_attn.layout()[2]
+            k = torch.zeros((batch, cfg.encoder.n_frames, k1 - k0,
                              cfg.head_dim), dtype=L.dtype_of(cfg),
                             device=model.device)
             v = torch.zeros_like(k)

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import encdec, transformer
 
 
@@ -62,18 +63,35 @@ def build_model(cfg: ArchConfig, *, device=None) -> ModelBundle:
 # ---------------------------------------------------------------------------
 # loss: chunked cross-entropy (vocab logits never fully materialized)
 # ---------------------------------------------------------------------------
-def _chunk_nll(h: torch.Tensor, table: torch.Tensor, y: torch.Tensor):
+def _chunk_nll(h: torch.Tensor, table: torch.Tensor, y: torch.Tensor,
+               vocab: int):
     """One chunk: (summed NLL over valid labels, count of valid labels),
-    both float32 scalars."""
-    logits = h.to(torch.float32) @ table.to(torch.float32).T   # (B, c, V)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, y.clamp_min(0)[..., None])[..., 0]
+    both float32 scalars. Where the ``vocab`` entries split over ``model``
+    (``table`` whole, or the rank's rows of it) each rank takes its
+    columns of the logits, and the row max, the sum of exponentials and
+    the target logit take one all-reduce each."""
     valid = (y >= 0).to(torch.float32)
+    m, j = tp.split(vocab, "vocab")
+    if m == 1:
+        logits = h.to(torch.float32) @ table.to(torch.float32).T  # (B,c,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y.clamp_min(0)[..., None])[..., 0]
+        return ((lse - gold) * valid).sum(), valid.sum()
+    part = tp.take(table, 0, m, j, vocab)
+    logits = tp.copy_in(h, m).to(torch.float32) @ part.to(torch.float32).T
+    top = tp.all_reduce(logits.detach().amax(-1), "max")
+    sumexp = tp.reduce_out(torch.exp(logits - top[..., None]).sum(-1), m)
+    lse = top + torch.log(sumexp)
+    local = y.clamp_min(0) - j * (vocab // m)
+    hit = (local >= 0) & (local < part.shape[0])
+    gold = torch.gather(logits, -1, torch.where(hit, local, 0)[..., None])
+    gold = tp.reduce_out(gold[..., 0] * hit.to(torch.float32), m)
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
 def chunked_xent(hidden: torch.Tensor, table: torch.Tensor,
-                 labels: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+                 labels: torch.Tensor, chunk: int = 2048,
+                 vocab: int | None = None) -> torch.Tensor:
     """hidden (B, S, d) × table (V, d) × labels (B, S) → mean NLL over the
     labels ≥ 0 (float32 scalar), as the reference's ``chunked_xent``: S is
     padded to a multiple of ``chunk`` with label −1, and the (B, chunk, V)
@@ -92,8 +110,10 @@ def chunked_xent(hidden: torch.Tensor, table: torch.Tensor,
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        args = (hidden[:, c0:c0 + chunk], table, labels[:, c0:c0 + chunk])
-        nll, n = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+        args = (hidden[:, c0:c0 + chunk], table, labels[:, c0:c0 + chunk],
+                vocab)
+        nll, n = (checkpoint(tp.captured(_chunk_nll), *args,
+                             use_reentrant=False)
                   if remat else _chunk_nll(*args))
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp_min(cnt, 1.0)
@@ -136,11 +156,12 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         if is_vlm:
             hidden = hidden[:, patches.shape[1]:]
         nll = chunked_xent(hidden[:, :-1], params.embed,
-                           _labels(batch, device)[:, 1:])
+                           _labels(batch, device)[:, 1:], vocab=cfg.vocab)
         return nll + aux, {"nll": nll, "aux": aux}
 
-    def init_cache(batch, max_seq):
-        return transformer.init_cache(cfg, batch, max_seq, device)
+    def init_cache(batch, max_seq, seq_shards=None):
+        return transformer.init_cache(cfg, batch, max_seq, device,
+                                      seq_shards)
 
     def decode(params, tokens, caches):
         return transformer.decode_step(params, tokens, caches)
@@ -182,13 +203,16 @@ def _build_encdec(cfg: ArchConfig, device: torch.device) -> ModelBundle:
         enc_out = encdec.encode(params, batch["frames"])
         hidden = encdec.decode_train(params, batch["tokens"], enc_out)
         nll = chunked_xent(hidden[:, :-1], params.embed,
-                           _labels(batch, device)[:, 1:])
+                           _labels(batch, device)[:, 1:], vocab=cfg.vocab)
         return nll, {"nll": nll}
 
-    def init_cache(batch, max_seq, params=None, enc_out=None):
+    def init_cache(batch, max_seq, params=None, enc_out=None,
+                   seq_shards=None):
         if params is None:
             raise ValueError("enc-dec cache needs params (cross-attn K/V)")
-        return encdec.init_decode_cache(params, batch, max_seq, enc_out)
+        return encdec.init_decode_cache(
+            params, batch, max_seq, enc_out,
+            None if seq_shards is None else seq_shards(max_seq))
 
     def decode(params, tokens, caches):
         return encdec.decode_step(params, tokens, caches)

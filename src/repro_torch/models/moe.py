@@ -16,6 +16,29 @@ Shared experts (deepseek) run densely on every token. The switch aux loss
 is returned. Under an ambient mesh with the ``moe_a2a`` rule set
 (``dist.sharding.axis_rules(moe_a2a=True)``), the expert-parallel
 all-to-all dispatch of ``moe_a2a.py`` runs instead, as in the reference.
+
+On a mesh whose ``model`` axis the experts resolve to (``experts``), rank
+j of m routes the tokens it holds (the batch is replicated over ``model``)
+and runs the slabs of its E/m experts, [j·E/m, (j+1)·E/m), only; one
+reduction over ``model`` sums the ranks' outputs, the shared experts'
+column-parallel share with them. In a training step the aux loss's
+statistics are averaged over the batch axes, so that it is the whole
+batch's, as the reference's (a prefill or decode step does not read it).
+
+The slab follows the reference's ``capacity`` rule. By default the rule is
+empty and the reference's (E, C, d) slab is replicated over the batch
+axes: C is the capacity of the global batch, every rank holds all of it,
+and a token's slot is its position among the whole batch's assignments.
+So the ranks of the batch axes rank their expert ids together (one gather
+of the (T·k,) ids), each scatters its own tokens into the global slots,
+and one sum over the batch axes (``tensor_parallel.shared_sum``, a sum in
+the backward pass too) gives every rank the whole slab, whose experts it
+runs alike. ``--capacity-data`` cuts C over ``data``: the slab is then
+shared only over the batch axes the rule leaves out (``pod`` on 2×16×16,
+none on 16×16), and a rank's share of C is the capacity of the tokens of
+its group. The reference's ``moe_tokens`` rule
+(``--moe-replicated-dispatch``) installs an empty rule, which ``has_rule``
+reads as none, so it changes the dataflow of neither package.
 """
 from __future__ import annotations
 
@@ -23,7 +46,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.dist.sharding import current_mesh, has_rule
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import current_mesh, has_rule, rule
 from repro_torch.models import layers as L
 
 
@@ -43,25 +67,52 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def route(logits: torch.Tensor, m: MoEConfig):
+def route(logits: torch.Tensor, m: MoEConfig, shared=None):
     """float32 router logits (T, E) → (probs (T, E), gates (T, k)
     renormalised, expert ids (T, k), position-in-expert (T·k,), keep
-    (T·k,), capacity). Position comes from rank-by-sort: assignment j of
-    expert e ranks by its place among e's assignments in (token, k) order."""
+    (T·k,), capacity). ``shared``: (mesh, axes) whose ranks' tokens fill
+    one slab (``slab_group``): the capacity is then that of the group's
+    tokens and the positions are among the group's assignments, in rank
+    order along ``axes``."""
     t, e = logits.shape
     probs = torch.softmax(logits, dim=-1)
     gates, expert_idx = top_k(probs, m.top_k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    cap = capacity(m, t)
     eid = expert_idx.reshape(-1)
+    if shared is None:
+        cap, pos = capacity(m, t), positions(eid, e)
+    else:
+        mesh, axes = shared
+        n = mesh.axis_size(axes)
+        cap = capacity(m, n * t)
+        every = mesh.all_gather(eid, axes)
+        pos = positions(every, e).reshape(n, -1)[mesh.axis_index(axes)]
+    return probs, gates, expert_idx, pos, pos < cap, cap
+
+
+def positions(eid: torch.Tensor, e: int) -> torch.Tensor:
+    """Position-in-expert of each of the (T·k,) assignments, by
+    rank-by-sort: assignment j of expert e ranks by its place among e's
+    assignments in (token, k) order."""
     order = torch.argsort(eid, stable=True)
     eid_sorted = eid[order]
     starts = torch.searchsorted(eid_sorted,
                                 torch.arange(e, device=eid.device))
     ranks_sorted = (torch.arange(eid.numel(), device=eid.device)
                     - starts[eid_sorted])
-    pos = torch.empty_like(eid).scatter_(0, order, ranks_sorted)
-    return probs, gates, expert_idx, pos, pos < cap, cap
+    return torch.empty_like(eid).scatter_(0, order, ranks_sorted)
+
+
+def slab_group():
+    """(mesh, axes): the batch axes of the current split over which the
+    reference's slab is replicated, those its ``capacity`` rule does not
+    cut (module docstring); None where there are none."""
+    mesh = tp.scope_mesh()
+    if mesh is None:
+        return None
+    cut = set(rule("capacity"))
+    axes = tuple(a for a in tp.batch_axes() if a not in cut)
+    return (mesh, axes) if mesh.axis_size(axes) > 1 else None
 
 
 class Experts(nn.Module):
@@ -71,15 +122,19 @@ class Experts(nn.Module):
     def __init__(self, gen, m: MoEConfig, d: int, dtype, device):
         super().__init__()
         e, f = m.num_experts, m.d_ff_expert
+        self.num_experts = e
         self.w_gate = L._param(_stack_init(gen, e, d, f, dtype, device))
         self.w_up = L._param(_stack_init(gen, e, d, f, dtype, device))
         self.w_down = L._param(_stack_init(gen, e, f, d, dtype, device))
 
-    def forward(self, slab: torch.Tensor) -> torch.Tensor:
-        """(E, C, d) → (E, C, d)."""
-        h = (torch.nn.functional.silu(torch.bmm(slab, self.w_gate))
-             * torch.bmm(slab, self.w_up))
-        return torch.bmm(h, self.w_down)
+    def forward(self, slab: torch.Tensor, m: int = 1, j: int = 0
+                ) -> torch.Tensor:
+        """(E/m, C, d) → (E/m, C, d): the experts of rank j of m."""
+        wg, wu, wd = (tp.take(w, 0, m, j, self.num_experts)
+                      for w in (self.w_gate, self.w_up, self.w_down))
+        h = (torch.nn.functional.silu(torch.bmm(slab, wg))
+             * torch.bmm(slab, wu))
+        return torch.bmm(h, wd)
 
 
 def _stack_init(gen, e: int, din: int, dout: int, dtype,
@@ -112,24 +167,41 @@ class MoE(nn.Module):
             return moe_ffn_a2a(self, self.cfg, x)
         m = self.cfg.moe
         b, s, d = x.shape
-        xf = x.reshape(b * s, d)
+        n, j = tp.split(m.num_experts, "experts")
+        e_loc = m.num_experts // n
+        xf = tp.copy_in(x, n).reshape(b * s, d)
+        shared = slab_group()
         probs, gates, expert_idx, pos, keep, cap = route(
-            xf.to(torch.float32) @ self.router, m)
+            xf.to(torch.float32) @ self.router, m, shared)
         eid = expert_idx.reshape(-1)
+        if n > 1:   # this rank's experts only
+            keep = keep & (eid >= j * e_loc) & (eid < (j + 1) * e_loc)
+            eid = torch.where(keep, eid - j * e_loc, 0)
         safe_pos = torch.where(keep, pos, cap - 1)
         src = xf.repeat_interleave(m.top_k, dim=0)            # (T·k, d)
-        slab = x.new_zeros((m.num_experts, cap, d))
+        slab = x.new_zeros((e_loc, cap, d))
         slab.index_put_((eid, safe_pos),
                         torch.where(keep[:, None], src, 0), accumulate=True)
-        out_slab = self.experts(slab)
+        if shared is not None:   # the group's tokens in one slab
+            slab = tp.shared_sum(slab, *shared)
+        out_slab = self.experts(slab, n, j)
         gathered = torch.where(keep[:, None], out_slab[eid, safe_pos], 0)
         w = gates.reshape(-1, 1).to(gathered.dtype)
         y = (gathered * w).reshape(b * s, m.top_k, d).sum(1)
         if m.num_shared:
-            y = y + self.shared(xf)
-        # switch aux loss: fraction-of-tokens × mean-prob per expert
+            ys, ns = self.shared.partial(x.reshape(b * s, d))
+            if ns == n:   # one reduction for both
+                y = tp.reduce_out(y + ys, n)
+            else:
+                y = tp.reduce_out(y, n) + tp.reduce_out(ys, ns)
+        else:
+            y = tp.reduce_out(y, n)
+        # switch aux loss: fraction-of-tokens × mean-prob per expert, over
+        # the whole batch where a training step splits it over ranks
         me = probs.mean(0)
         ce = torch.nn.functional.one_hot(
             expert_idx[:, 0], m.num_experts).to(torch.float32).mean(0)
+        if tp.training():
+            me, ce = tp.batch_mean(me), tp.batch_mean(ce)
         aux = m.num_experts * (me * ce).sum() * m.router_aux_loss
-        return y.reshape(b, s, d), aux
+        return y.reshape(b, s, d), tp.grad_scale(aux, n)

@@ -12,6 +12,11 @@ Prefill runs the recurrence as a log-depth scan over the sequence
 reference runs ``lax.associative_scan``); decode is the float32 O(1)
 step. A depthwise causal conv (width 4, no activation) precedes the
 recurrence, and its last W − 1 rows are carried in the cache.
+
+On a mesh the width splits over ``model`` (the reference's ``mlp``
+annotation): rank j of m takes its W/m columns of ``w_x``, ``w_gate_in``
+and the conv, its channels' gates and decay, and ``out``'s rows, followed
+by one reduction; its cache holds its channels.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 F = torch.nn.functional
@@ -54,13 +60,21 @@ class RGLRU(nn.Module):
                 cache: Optional[dict] = None) -> torch.Tensor:
         """u (B, S, d_model) → (B, S, d_model). With a cache (decode) its
         ``state`` and ``conv`` are replaced by the new ones."""
-        gate = F.gelu(u @ self.w_gate_in, approximate="tanh")  # jax's gelu
-        x, new_conv = L.causal_conv(u @ self.w_x, self.conv,
+        w = width(self.cfg)
+        m, j = tp.split(w, "mlp")
+        w_gate_in, w_x, conv = (tp.take(t, 1, m, j, w) for t in (
+            self.w_gate_in, self.w_x, self.conv))
+        a_param, in_gate_w, rec_gate_w, w_out = (
+            tp.take(t, 0, m, j, w) for t in (
+                self.a_param, self.in_gate_w, self.rec_gate_w, self.out))
+        u = tp.copy_in(u, m)
+        gate = F.gelu(u @ w_gate_in, approximate="tanh")  # jax's gelu
+        x, new_conv = L.causal_conv(u @ w_x, conv,
                                     None if cache is None else cache["conv"])
         xf = x.to(torch.float32)
-        rec_gate = torch.sigmoid(xf * self.rec_gate_w + 0.0)
-        in_gate = torch.sigmoid(xf * self.in_gate_w)
-        a = torch.exp(-self.cfg.rglru.c_constant * F.softplus(self.a_param)
+        rec_gate = torch.sigmoid(xf * rec_gate_w + 0.0)
+        in_gate = torch.sigmoid(xf * in_gate_w)
+        a = torch.exp(-self.cfg.rglru.c_constant * F.softplus(a_param)
                       * rec_gate)
         beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
         v = beta * in_gate * xf                                 # (B,S,W)
@@ -74,7 +88,7 @@ class RGLRU(nn.Module):
             cache["state"], cache["conv"] = h, new_conv
         else:
             hseq = linear_scan(a, v)
-        return (hseq.to(u.dtype) * gate) @ self.out
+        return tp.reduce_out((hseq.to(u.dtype) * gate) @ w_out, m)
 
 
 def linear_scan(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -94,7 +108,10 @@ def linear_scan(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def init_rglru_cache(cfg: ArchConfig, batch: int, device=None) -> dict:
+    """The state and conv rows of the rank's channels (all on one
+    card)."""
     w = width(cfg)
+    w //= tp.split(w, "mlp")[0]
     return {
         "state": torch.zeros((batch, w), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.rglru.conv_width - 1, w),

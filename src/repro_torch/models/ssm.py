@@ -14,6 +14,12 @@ Decode is the float32 O(1) recurrence h = a·h + B x; y = C·h + D x, a
 mini-scan for S ≥ 1; the state and the conv's last W − 1 rows are the
 whole cache. Scalar-per-head decay a_t = exp(−Δ_t · exp(A_log)), with
 Δ = softplus(dt + dt_bias); a depthwise causal conv on [x, B, C].
+
+On a mesh the SSD heads split over ``model`` (the reference's ``mlp``
+annotation): rank j of m takes its heads' columns of ``in_proj`` ([x, z,
+B, C, dt] each cut to the rank's heads) and of the conv, its heads' decay
+and skip, and ``out_proj``'s rows, followed by one reduction; its cache
+holds its heads.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 F = torch.nn.functional
@@ -33,6 +40,15 @@ def dims(cfg: ArchConfig):
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     return s, d_inner, d_inner // s.head_dim
+
+
+def _spans(starts_sizes, m: int, j: int) -> list[tuple[int, int]]:
+    """Rank j's (start, length) in each block (start, size) of columns."""
+    return [(a + j * (n // m), n // m) for a, n in starts_sizes]
+
+
+def _cols(w: torch.Tensor, dim: int, spans) -> torch.Tensor:
+    return torch.cat([w.narrow(dim, a, n) for a, n in spans], dim=dim)
 
 
 class SSM(nn.Module):
@@ -58,18 +74,40 @@ class SSM(nn.Module):
         self.out_proj = L._param(L.dense_init(gen, d_inner, cfg.d_model,
                                               dtype, device))
 
+    def _local(self):
+        """(split m, heads, d_inner, in_proj, conv, A_log, D, dt_bias,
+        out_proj) of this rank (module docstring)."""
+        s, d_inner, n_heads = dims(self.cfg)
+        m, j = tp.split(n_heads, "mlp")
+        if m == 1:
+            return (1, n_heads, d_inner, self.in_proj, self.conv, self.A_log,
+                    self.D, self.dt_bias, self.out_proj)
+        hn = n_heads * s.state_dim
+        w_in = _cols(self.in_proj, 1, _spans(
+            [(0, d_inner), (d_inner, d_inner), (2 * d_inner, hn),
+             (2 * d_inner + hn, hn), (2 * d_inner + 2 * hn, n_heads)], m, j))
+        conv = _cols(self.conv, 1, _spans(
+            [(0, d_inner), (d_inner, hn), (d_inner + hn, hn)], m, j))
+        a_log, skip, bias = (tp.take(t, 0, m, j, n_heads)
+                             for t in (self.A_log, self.D, self.dt_bias))
+        return (m, n_heads // m, d_inner // m, w_in, conv, a_log, skip,
+                bias, tp.take(self.out_proj, 0, m, j, d_inner))
+
     def forward(self, u: torch.Tensor,
                 cache: Optional[dict] = None) -> torch.Tensor:
         """u (B, S, d_model) → (B, S, d_model). With a cache (decode) its
         ``state`` and ``conv`` are replaced by the new ones."""
-        s, d_inner, n_heads = dims(self.cfg)
+        s = self.cfg.ssm
+        m, n_heads, d_inner, w_in, conv, a_log, skip, dt_bias, w_out = \
+            self._local()
+        u = tp.copy_in(u, m)
         b, seqlen, _ = u.shape
         bc_end = 2 * d_inner + 2 * n_heads * s.state_dim
-        proj = u @ self.in_proj
+        proj = u @ w_in
         x, z = proj[..., :d_inner], proj[..., d_inner:2 * d_inner]
         bc, dt = proj[..., 2 * d_inner:bc_end], proj[..., bc_end:]
         conv_out, new_conv = L.causal_conv(
-            torch.cat([x, bc], dim=-1), self.conv,
+            torch.cat([x, bc], dim=-1), conv,
             None if cache is None else cache["conv"])
         conv_out = F.silu(conv_out)
         x, bc = conv_out[..., :d_inner], conv_out[..., d_inner:]
@@ -77,8 +115,8 @@ class SSM(nn.Module):
                 for t in bc.chunk(2, dim=-1))
         xh = x.reshape(b, seqlen, n_heads, s.head_dim)
 
-        dt = F.softplus(dt.to(torch.float32) + self.dt_bias)      # (B,S,H)
-        a = torch.exp(-dt * torch.exp(self.A_log))                # ∈ (0, 1)
+        dt = F.softplus(dt.to(torch.float32) + dt_bias)           # (B,S,H)
+        a = torch.exp(-dt * torch.exp(a_log))                     # ∈ (0, 1)
 
         if cache is not None:
             h = cache["state"]                                    # (B,H,P,N)
@@ -94,9 +132,9 @@ class SSM(nn.Module):
         else:
             y = ssd_chunked(xh, a, B, C, s.chunk)
 
-        y = y + xh.to(torch.float32) * self.D[:, None]
+        y = y + xh.to(torch.float32) * skip[:, None]
         y = y.reshape(b, seqlen, d_inner).to(u.dtype)
-        return (y * F.silu(z)) @ self.out_proj
+        return tp.reduce_out((y * F.silu(z)) @ w_out, m)
 
 
 def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
@@ -152,7 +190,10 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, device=None) -> dict:
+    """The state and conv rows of the rank's heads (all on one card)."""
     s, d_inner, n_heads = dims(cfg)
+    m = tp.split(n_heads, "mlp")[0]
+    d_inner, n_heads = d_inner // m, n_heads // m
     return {
         "state": torch.zeros((batch, n_heads, s.head_dim, s.state_dim),
                              dtype=torch.float32, device=device),

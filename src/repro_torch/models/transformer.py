@@ -12,6 +12,11 @@ these layers. Decode caches are one dict per layer, of the layer's kind.
 (``torch.utils.checkpoint``, non-reentrant), as the reference's
 ``jax.checkpoint`` over each layer group's scan body does; it acts only
 where a graph is built (training).
+
+On a mesh (``dist.tensor_parallel``) the vocabulary splits over ``model``
+where it divides: the embedding looks up the rank's rows of the table
+(a token elsewhere reads zeros) and one all-reduce sums them; the logits
+are the rank's columns, gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -127,9 +133,13 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
-                     device=None) -> dict:
+                     device=None, seq_shard=None) -> dict:
+    """A layer's decode cache; on a mesh (inside a ``tensor_parallel``
+    scope) the rank's part: attention rows split by ``seq_shard`` (the
+    ``cache_seq`` rule), SSD heads and RG-LRU width over ``model``."""
     if kind in ATTN_KINDS:
-        return L.init_attn_cache(cfg, batch, max_seq, kind, device=device)
+        return L.init_attn_cache(cfg, batch, max_seq, kind, device=device,
+                                 seq_shard=seq_shard)
     if kind == "ssm":
         return ssm_mod.init_ssm_cache(cfg, batch, device)
     if kind == "rglru":
@@ -138,15 +148,47 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device=None) -> list[dict]:
+               device=None, seq_shards=None) -> list[dict]:
+    """One cache a layer; ``seq_shards``, where given, a function of the
+    layer kind's cache rows → its ``seq_shard``."""
     device = resolve_device(device)
-    return [init_block_cache(cfg, kind, batch, max_seq, device)
-            for kind in layer_kinds(cfg)]
+    return [init_block_cache(
+        cfg, kind, batch, max_seq, device,
+        None if seq_shards is None or kind not in ATTN_KINDS
+        else seq_shards(L.cache_steps(cfg, max_seq, kind)))
+        for kind in layer_kinds(cfg)]
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Rows of the embedding table, vocabulary-parallel over ``model``
+    where the vocabulary splits: each rank reads its rows (zeros for a
+    token it does not hold), then one all-reduce."""
+    m, j = tp.split(vocab, "vocab")
+    if m == 1:
+        return table[tokens]
+    part = tp.take(table, 0, m, j, vocab)
+    lo = j * (vocab // m)
+    local = tokens - lo
+    hit = (local >= 0) & (local < part.shape[0])
+    x = part[torch.where(hit, local, 0)] * hit[..., None].to(part.dtype)
+    return tp.reduce_out(x, m)
+
+
+def vocab_logits(hidden: torch.Tensor, w: torch.Tensor, vocab: int,
+                 dim: int) -> torch.Tensor:
+    """hidden @ the output matrix ``w`` (the table, vocabulary on ``dim``
+    0, or the head, on ``dim`` 1), vocabulary-parallel where it splits:
+    the rank's columns, gathered over ``model``."""
+    m, j = tp.split(vocab, "vocab")
+    w = tp.take(w, dim, m, j, vocab)
+    out = tp.copy_in(hidden, m) @ (w.T if dim == 0 else w)
+    return tp.gather(out, -1) if m > 1 else out
 
 
 def _embed(model: LM, tokens) -> torch.Tensor:
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=model.device)
-    x = model.embed[tokens]
+    x = embed_lookup(model.embed, tokens, model.cfg.vocab)
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype)
 
 
@@ -167,7 +209,8 @@ def _run_layers(model: LM, x: torch.Tensor, positions: torch.Tensor,
     remat = remat and caches is None and x.requires_grad
     for i, block in enumerate(model.layers):
         if remat:
-            x, aux = checkpoint(block, x, rope, None, use_reentrant=False)
+            x, aux = checkpoint(tp.captured(block), x, rope, None,
+                                use_reentrant=False)
         else:
             x, aux = block(x, rope, None if caches is None else caches[i])
         if aux is not None:
@@ -218,5 +261,5 @@ def cache_pos(caches: list) -> int:
 def lm_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
     """Logits in the parameter dtype, from the tied embedding or the head."""
     if model.cfg.tie_embeddings:
-        return hidden @ model.embed.T
-    return hidden @ model.lm_head
+        return vocab_logits(hidden, model.embed, model.cfg.vocab, 0)
+    return vocab_logits(hidden, model.lm_head, model.cfg.vocab, 1)

@@ -12,8 +12,9 @@ the read of its loss, which waits for the card).
 ``mesh`` (a ``launch.mesh.Mesh``, one process a rank, each calling
 ``train``) is the reference's sharded run: the parameters are held as
 ``dist.sharding.ShardedParams`` (``fsdp`` also spreads them over ``data``),
-each step runs this rank's rows of the global batch, and the losses are
-one card's. A checkpoint holds full arrays: the ranks gather them leaf by
+each step runs this rank's rows of the global batch with each block's
+compute split over the ``model`` axis (``dist.tensor_parallel``), and the
+losses are one card's to the rounding of the split sums. A checkpoint holds full arrays: the ranks gather them leaf by
 leaf, and rank 0 alone copies them to the host and writes; a restart cuts
 them to the current mesh (``restore_latest(..., shardings=...)``), whatever
 mesh wrote them.
@@ -101,7 +102,8 @@ def train(cfg: ArchConfig, tcfg: TrainConfig, *, device=None, mesh=None,
     shardings = None
     if mesh is not None:
         shd.set_mesh(mesh)
-        params = shd.ShardedParams(params, mesh, fsdp=fsdp)
+        params = shd.ShardedParams(params, mesh, fsdp=fsdp,
+                                   batch_rows=tcfg.global_batch)
     opt_state = opt.init(params)
     if mesh is not None:
         shardings = {"params": params.shardings,

@@ -802,6 +802,63 @@ def test_flash_split_with_only_empty_slots(cuda, dtype):
     assert torch.equal(again, out)
 
 
+# a decode cache split over ranks by its rows: (T, positions written,
+# window); the slices past the written positions, or outside the window,
+# see no key
+SEQ_SHARD_CASES = {"full": (512, 512, 0), "half_written": (512, 300, 0),
+                   "window": (512, 512, 64), "rolling": (256, 700, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(SEQ_SHARD_CASES))
+@pytest.mark.parametrize("n", [2, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_slices_merged_equal_one_launch(cuda, case, n, dtype):
+    """A decode cache cut into n slices of rows: each slice through the
+    split route with its log-sum-exp, then the merge launch, equals one
+    launch over the whole cache within the decode tolerance, slices that
+    see no key included (their lse is -inf); each slice's lse equals the
+    plain version's."""
+    t, written, window = SEQ_SHARD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(t + n + written)
+    b, h, hkv, d = 3, 16, 8, 128
+    q = torch.randn(b, 1, h, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(b, t, hkv, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, t, hkv, d, device=cuda, generator=gen).to(dtype)
+    kpos = _rolling(t, written).to(cuda)
+    kw = dict(causal=True, window=window, q_offset=written - 1)
+    whole = ops.gqa_attention(q, k, v, kv_positions=kpos, **kw)
+    outs, lses = [], []
+    for k_, v_, p_ in zip(k.chunk(n, 1), v.chunk(n, 1), kpos.chunk(n)):
+        ops.reset_launches()
+        o, lse = ops.gqa_attention_lse(q, k_, v_, kv_positions=p_, **kw)
+        _assert_one_launch("split")
+        want_o, want_lse = ref.gqa_attention_lse(q, k_, v_,
+                                                 kv_positions=p_, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        fin = ~torch.isinf(want_lse)
+        np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                                   want_lse[fin].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+        outs.append(o)
+        lses.append(lse)
+    empty = {"window": n >= 2, "half_written": n >= 4}.get(case, False)
+    assert any(torch.isinf(x).all().item() for x in lses) == empty
+    ops.reset_launches()
+    merged = ops.decode_merge(torch.stack(outs), torch.stack(lses), dtype,
+                              hkv)
+    assert ops.LAUNCHES["flash_decode_merge"] == 1
+    torch.cuda.synchronize()
+    assert merged.dtype == dtype and merged.shape == whole.shape
+    np.testing.assert_allclose(merged.float().cpu().numpy(),
+                               whole.float().cpu().numpy(),
+                               **FLASH_TOL[dtype])
+    plain = ref.decode_merge(torch.stack(outs).cpu(),
+                             torch.stack(lses).cpu())
+    np.testing.assert_allclose(merged.float().cpu().numpy(),
+                               plain.numpy(), **FLASH_TOL[dtype])
+
+
 @pytest.mark.parametrize("d", [16, 64, 256])
 def test_flash_kernel_head_dims(cuda, d):
     gen = torch.Generator(device=cuda).manual_seed(d)

@@ -57,7 +57,10 @@ def test_import_graph_has_no_jax_and_no_repro():
                 "repro_torch.launch.op_cost", "repro_torch.launch.census",
                 "repro_torch.launch.census_join",
                 "repro_torch.launch.mesh", "repro_torch.dist.sharding",
-                "repro_torch.dist.pipeline", "repro_torch.models.moe_a2a"]
+                "repro_torch.dist.pipeline", "repro_torch.models.moe_a2a",
+                "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_join",
+                "repro_torch.launch.collectives",
+                "repro_torch.dist.tensor_parallel"]
     code = ("import sys, importlib\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -88,3 +91,17 @@ def test_sources_never_import_jax_or_repro():
 ])
 def test_forbidden_pattern(line, bad):
     assert bool(FORBIDDEN.search(line)) == bad
+
+
+def test_fake_backend_only_in_the_dry_run():
+    """torch's fake process group, in which no collective moves data, is
+    joined by the dry-run alone (``launch/dryrun.py`` through
+    ``ensure_world``); ``launch/mesh.py`` defines it."""
+    users = set()
+    for path in _port_sources():
+        with open(path) as f:
+            src = f.read()
+        if "init_fake_world(" in src or '"fake"' in src:
+            users.add(os.path.relpath(path, ROOT))
+    assert users == {os.path.join("src", "repro_torch", "launch", f)
+                     for f in ("mesh.py", "dryrun.py")}, users

@@ -68,7 +68,8 @@ def _lm(arch: str, np_params, smoke: bool = True):
 def train_step(rank, world, arch, np_params, tokens, lr, runs):
     """One sharded step per run (``shape``, ``fsdp``, ``int8``) from the
     same weights on the global batch ``tokens`` → per run (loss,
-    grad_norm, every parameter gathered after the step)."""
+    grad_norm, every parameter gathered after the step), each on the
+    compute split over ``model`` that ``train(mesh)`` runs."""
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train import AdamW, AdamWConfig, make_int8_compressor
@@ -103,8 +104,9 @@ def train_resume(rank, world, arch, ckdir, steps, kill_at, shape, lr):
     """``train(mesh)`` with checkpoints: uninterrupted into ``ckdir/a``;
     killed after step ``kill_at`` and resumed into ``ckdir/b``; then
     ``ckdir/a``'s newest checkpoint restored onto a (world, 1) mesh →
-    (losses, losses before the kill, resumed losses, the (world, 1)
-    restore's full tensors by leaf name)."""
+    (losses, losses before the kill, resumed losses, the restored step,
+    the (world, 1) restore's full tensors by leaf name, the training
+    mesh's tally after all its steps)."""
     import os
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.checkpoint import restore_latest
@@ -155,7 +157,7 @@ def train_resume(rank, world, arch, ckdir, steps, kill_at, shape, lr):
         tensors.update({f"opt.{key}.{n}": t for n, t in
                         store.full(state[key]).items()})
     return (full, seen, resumed, step,
-            {n: t.numpy() for n, t in tensors.items()})
+            {n: t.numpy() for n, t in tensors.items()}, mesh.tally)
 
 
 def gpipe(rank, world, w, x):
@@ -283,3 +285,155 @@ def train_one_rank(rank, world, tcfg):
     mesh = Mesh({"data": world, "model": 1}, device="cpu")
     return train(smoke_config(get_config("qwen3-0.6b")), tcfg,
                  mesh=mesh)["loss_history"]
+
+
+def tensor_parallel(rank, world, cases, shapes, lr):
+    """The compute split over ``model`` (``dist.tensor_parallel``) for each
+    case (an arch's widened smoke config and the reference's weights
+    carried across) on each mesh shape: one ``make_train_step`` (loss,
+    the gradients gathered, the parameters gathered after the step), the
+    prefill logits, and two decode steps against caches split over their
+    rows (``cache_seq`` over ``model``), with the logits of every rank's
+    rows gathered; and the head counts the attention ran at (training and
+    prefill). → {(arch, mesh name): result}."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.steps import make_train_step, seq_shard_of
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.train import AdamW, AdamWConfig
+
+    heads = []
+    plain = kops.gqa_attention
+
+    def counting(q, *a, **kw):
+        heads.append(int(q.shape[2]))
+        return plain(q, *a, **kw)
+
+    class Recording(AdamW):
+        def update(self, grads, state, params):
+            self.grads = grads
+            return super().update(grads, state, params)
+
+    kops.gqa_attention = counting
+    out = {}
+    try:
+        for name, shape in shapes.items():
+            mesh = Mesh(shape, device="cpu")
+            for arch, cfg, np_params, batch, max_seq in cases:
+                bundle = build_model(cfg, device="cpu")
+                full = {k: torch.as_tensor(v) for k, v in batch.items()}
+                shd.set_mesh(mesh)
+                try:
+                    store = shd.ShardedParams(
+                        params_from_jax(np_params, cfg, device="cpu"), mesh,
+                        batch_rows=full["tokens"].shape[0])
+                    opt = Recording(AdamWConfig(learning_rate=lr,
+                                                warmup_steps=1,
+                                                total_steps=10))
+                    heads.clear()
+                    store, _, met = make_train_step(bundle, opt, mesh)(
+                        store, opt.init(store), full)
+                    train_heads = sorted(set(heads))
+                    grads = store.full(opt.grads)
+                    params = store.full(dict(store.named_parameters()))
+                    axes = store.batch_axes
+                    n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+                    local = {k: v.chunk(n, 0)[i] for k, v in full.items()}
+                    with torch.no_grad():
+                        # the prefill and decode from the weights before the
+                        # step
+                        store = shd.ShardedParams(
+                            params_from_jax(np_params, cfg, device="cpu"),
+                            mesh, batch_rows=full["tokens"].shape[0])
+                        heads.clear()
+                        logits = store.call(bundle.prefill, local)
+                        prefill_heads = sorted(set(heads))
+                        steps = []
+                        with shd.axis_rules(cache_seq=("model",)):
+                            def caches(model):
+                                shards = (lambda t: seq_shard_of(mesh, t))
+                                rows = local["tokens"].shape[0]
+                                if cfg.enc_dec:
+                                    enc = encdec.encode(model,
+                                                        local["frames"])
+                                    return bundle.init_cache(
+                                        rows, max_seq, params=model,
+                                        enc_out=enc, seq_shards=shards)
+                                return bundle.init_cache(rows, max_seq,
+                                                         seq_shards=shards)
+                            cache = store.call(caches)
+                            for t in range(2):
+                                tok = local["tokens"][:, t:t + 1]
+                                steps.append(mesh.all_gather(store.call(
+                                    bundle.decode, tok, cache)[0], axes))
+                        logits = mesh.all_gather(logits, axes)
+                finally:
+                    shd.set_mesh(None)
+                out[(arch, name)] = dict(
+                    loss=float(met["loss"]),
+                    grads={k: v.detach().numpy() for k, v in grads.items()},
+                    params={k: v.detach().numpy() for k, v in params.items()},
+                    prefill=logits.numpy(),
+                    decode=[s.numpy() for s in steps],
+                    heads=(train_heads, prefill_heads))
+    finally:
+        kops.gqa_attention = plain
+    return out
+
+
+# the dry-run's shapes cut for the CPU: the kinds, the global batches and
+# the decode caches' split over ranks kept, the sequences short
+DRYRUN_SEQ = {"train_4k": 16, "prefill_32k": 32, "decode_32k": 64,
+              "long_500k": 256}
+
+
+def dryrun_suite(ops_dir, runs):
+    """``launch.dryrun`` at smoke widths in this process's fake worlds, on
+    the CPU: each run (arch, shape, multi_pod, keywords) → its record,
+    with ``expected_params_bytes``, the sum of the parts ``param_shardings``
+    gives the rank on that mesh; then the join superstep on both meshes,
+    and the tally of one send → (records, join records, send tally)."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config, smoke_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun, dryrun_join
+    from repro_torch.launch.census import tree_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    torch.set_num_threads(2)
+
+    def config(arch):
+        cfg = smoke_config(get_config(arch))
+        if cfg.moe is not None:   # experts that divide the model axis
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=16))
+        return cfg
+
+    dryrun.get_config = config
+    dryrun.SHAPES = {k: dataclasses.replace(v, seq_len=DRYRUN_SEQ[k])
+                     for k, v in SHAPES.items()}
+    recs = []
+    for arch, shape, mp, kw in runs:
+        rec = dryrun.run_cell(arch, shape, mp, device="cpu",
+                              ops_dir=ops_dir, **kw)
+        if rec["status"] == "ok":
+            mesh = make_production_mesh(multi_pod=mp, device="cpu")
+            model = build_model(config(arch), device="cpu").init(0)
+            with shd.axis_rules(**dryrun.extra_rules(
+                    **{k: v for k, v in kw.items()
+                       if k in ("capacity_data", "dp_over_model",
+                                "moe_replicated_dispatch", "moe_a2a")})):
+                specs = shd.param_shardings(model, mesh,
+                                            fsdp=kw.get("fsdp", False))
+            rec["expected_params_bytes"] = sum(
+                tree_bytes(specs[n].shard(p.data))
+                for n, p in model.named_parameters())
+        recs.append(rec)
+    joins = [dryrun_join.run(1024, 16, 32, 8, mp, device="cpu")
+             for mp in (False, True)]
+    mesh = make_production_mesh(multi_pod=True, device="cpu")
+    with mesh.tallying() as tally:
+        mesh.send(torch.zeros(3, 5), "pod", 1)
+    return recs, joins, tally
