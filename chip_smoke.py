@@ -17,23 +17,31 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    must have launched, every verify launch (batched and E = 1) must have
    taken the tensor-core route (``pairwise_l2_sm90.cu``), and every assign
    launch of the build too (``bucket_assign_sm90.cu``); the build's
-   timings give the assign scan's share of it. Recall
+   timings give the assign scan's share of it. The tensor-core routes'
+   re-checks are tallied over the same run (verify's pairs recomputed in
+   the CUDA-core arithmetic, assign's rows rescanned). Recall
    against brute force (float64, on the card) for 2,000 rows must reach
-   0.88; query memberships of the two modes must agree except on
-   ε-boundary pairs.
+   0.88; every float64 pair touching those rows whose d² lies within the
+   re-check band of ε², in buckets the join compared, must be in the
+   join's pairs exactly where the CUDA-core kernel's mask has it; query
+   memberships of the two modes must agree except on ε-boundary pairs.
 3. Every kernel against its plain PyTorch version at the shapes the main
    path gave it, then timed beside its plain version, a library call where
    one exists, and its bound: device time from CUDA graphs, with the eager
    loop's time (launch latency included) beside it. The verify kernel's
    CUDA-core route (``pairwise_l2.cu``) is checked and timed at the
-   batched shape too, and both routes and the plain version are held
-   against float64 on the same lanes (d² bias near ε², ε-pairs missed and
-   kept). Both assign routes (``bucket_assign_sm90.cu``,
+   batched shape too: the tensor-core route's mask must be its bytes on
+   every pair, and its d² within the re-check band of it; both routes
+   and the plain version are held against float64 on the same lanes (d²
+   bias near ε², ε-pairs missed and kept: the same counts for both
+   routes). Both assign routes (``bucket_assign_sm90.cu``,
    ``bucket_assign.cu``) are checked and timed at one scan block of the
    build (8,192 × 1,000 centers) and against 65,536 centers (the
    reference's center-index crossover), beside the center index's own
    matmul + argmin, and on near-ties (duplicated centers; centers moved
-   by a few ulps).
+   by a few ulps; rows with three and four centers within the tensor
+   cores' error of each other, where the tensor-core route must give the
+   CUDA-core route's index and d² bytes).
 4. ``[io]``, on the main path's 1M index (graph and node order cached):
    ``self_join`` with prefetch I/O (``io_mode="prefetch"``,
    ``io_batch_reads``): byte-identical to the main path's sync join (pairs
@@ -92,8 +100,8 @@ Phases, in order; any failure exits nonzero and nothing is caught:
    ``trace_session``: its bytes, exported as a Chrome trace
    (``hidden_fraction(io.read, io.wait)`` logged beside the untraced
    join's time). A device join with every verify launch forced onto
-   the CUDA-core route (``pairwise_l2.cu``): each pair in its difference
-   from the tensor-core join lies within 1e-2 of ε² in float64. A resumable build killed after its assign
+   the CUDA-core route (``pairwise_l2.cu``): the tensor-core join's pair
+   set. A resumable build killed after its assign
    scan, then resumed: no rescan, and the uninterrupted build's bucket
    files and join bytes. The join with the planner (prefetch,
    ``plan_mode="on"``, ``compute_mode="auto"``; at 100k to fit the run's
@@ -497,6 +505,72 @@ def brute_force_recall(x: np.ndarray, eps: float, pairs: np.ndarray,
     return hit.double().mean().item(), int(truth.numel())
 
 
+def boundary_check(index, x: np.ndarray, eps: float, pairs: np.ndarray,
+                   rows: np.ndarray) -> dict:
+    """The ε test at the main path's size, over the whole boundary: every
+    pair touching ``rows`` that the tensor-core and CUDA-core routes could
+    decide differently, and whose buckets the join compared (one bucket,
+    or an edge of its bucket graph), is among the join's ``pairs`` exactly
+    where the CUDA-core kernel (``pairwise_l2.cu``, one lane a pair) puts
+    it in its mask. Two routes can differ only where the CUDA-core d² lies
+    within the re-check band of ε² (``csrc/l2_sm90.cuh``), and that d²
+    lies within (2d + 4)·2⁻²³·(‖a‖² + ‖b‖²) of float64's (three float32
+    FMA chains of d terms, two roundings): pairs are selected by float64
+    d² within the sum of the two, with a 1e-4 margin, of the float32 ε²
+    the kernels compare against."""
+    n, d = x.shape
+    xd = torch.from_numpy(x).cuda()
+    x64 = xd.double()
+    sq = (x64 * x64).sum(1)
+    eps2 = ops.eps2_f32(eps)
+    ku = (verify.band_scale(d) + (2 * d + 4) * 2.0 ** -23) * (1 + 1e-4)
+    near = []
+    for i0 in range(0, rows.size, 250):
+        r = torch.from_numpy(rows[i0:i0 + 250]).cuda()
+        d2 = sq[r][:, None] - 2.0 * (x64[r] @ x64.T) + sq[None, :]
+        w = ku * (sq[r][:, None] + sq[None, :]) + 2.0 ** -100
+        qi, j = torch.nonzero((d2 - eps2).abs() <= w, as_tuple=True)
+        keep = r[qi] != j
+        near.append(torch.stack([r[qi][keep], j[keep]], 1))
+    near = torch.cat(near)
+    bucket_of = np.empty(n, np.int64)
+    for b in range(index.num_buckets):
+        bucket_of[index.store.read_bucket(b)[1]] = b
+    bucket_of = torch.from_numpy(bucket_of).cuda()
+    graph = index._graph_for(index._resolve({}))[0]
+    nb = index.num_buckets
+    edges = torch.from_numpy(graph.edges[:, 0] * nb + graph.edges[:, 1])
+    bi, bj = bucket_of[near[:, 0]], bucket_of[near[:, 1]]
+    compared = (bi == bj) | torch.isin(
+        torch.minimum(bi, bj) * nb + torch.maximum(bi, bj), edges.cuda())
+    near = near[compared]
+    simt = []
+    for k0 in range(0, near.shape[0], 32_768):  # lanes: a grid's z extent
+        p = near[k0:k0 + 32_768]
+        _, m = verify.pairwise_l2_threshold_batched(
+            xd[p[:, 0]][:, None], xd[p[:, 1]][:, None], ops.eps2_f32(eps),
+            verify.LaunchPlan("simt"))
+        simt.append(m.view(-1).bool())
+    simt = torch.cat(simt) if simt else torch.zeros(0, dtype=torch.bool)
+    key = (torch.minimum(near[:, 0], near[:, 1]) * n
+           + torch.maximum(near[:, 0], near[:, 1]))
+    got = torch.from_numpy(pairs[:, 0] * n + pairs[:, 1]).cuda()
+    in_join = torch.isin(key, got)
+    differ = int((in_join != simt.to(in_join.device)).sum().item())
+    out = dict(band_pairs=int(compared.numel()),
+               compared=int(near.shape[0]), simt_in=int(simt.sum().item()),
+               join_in=int(in_join.sum().item()), differ=differ)
+    log(f"[main] boundary: {out['band_pairs']} float64 pairs touching "
+        f"{rows.size} rows lie within the re-check band of eps^2 widened "
+        f"by the CUDA-core kernel's float32 error, "
+        f"{out['compared']} in buckets the join compared; the CUDA-core "
+        f"kernel keeps {out['simt_in']}, the join {out['join_in']}; they "
+        f"decide {differ} differently")
+    check(differ == 0, f"the join decides {differ} pairs in the band "
+          f"otherwise than the CUDA-core kernel")
+    return out
+
+
 def check_join_output(x: np.ndarray, eps: float, res) -> None:
     p, d = res.pairs, res.distances
     check(p.ndim == 2 and p.shape[1] == 2 and p.shape[0] == d.shape[0] > 0,
@@ -580,22 +654,25 @@ def phase_main_path(workdir: str) -> dict:
     # --- the main path: counts zeroed just before, read just after -------
     ops.reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = DiskJoinIndex.build(store, cfg, os.path.join(workdir, "index"))
-    t["build"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = index.self_join()
-    torch.cuda.synchronize()
-    t["self_join"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    q_host = index.query_batch(Q, compute_mode="host")
-    t["query_host"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    q_dev = index.query_batch(Q, compute_mode="device")
-    torch.cuda.synchronize()
-    t["query_device"] = time.perf_counter() - t0
+    with verify.counting_rechecks(torch.device("cuda")) as rechecks:
+        t0 = time.perf_counter()
+        index = DiskJoinIndex.build(store, cfg,
+                                    os.path.join(workdir, "index"))
+        t["build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = index.self_join()
+        torch.cuda.synchronize()
+        t["self_join"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q_host = index.query_batch(Q, compute_mode="host")
+        t["query_host"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q_dev = index.query_batch(Q, compute_mode="device")
+        torch.cuda.synchronize()
+        t["query_device"] = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     # -----------------------------------------------------------------------
+    inband, rescanned = (int(v) for v in rechecks.tolist())
     log(f"[main] launches {launches}")
     check(all(launches[k] > 0 for k in JOIN_KERNELS),
           f"a kernel never launched on the main path: {launches}")
@@ -607,6 +684,12 @@ def phase_main_path(workdir: str) -> dict:
     check(launches["assign_simt"] == 0
           and launches["assign_tc"] == launches["bucket_assign"],
           f"an assign launch left the tensor-core route: {launches}")
+    log(f"[main] re-checks: {inband} verify pairs within the band of eps^2 "
+        f"recomputed in the CUDA-core arithmetic over {verify_launches} "
+        f"launches ({inband / verify_launches:.2f} a launch); {rescanned} "
+        f"assign rows rescanned over {launches['bucket_assign']} launches "
+        f"({rescanned / launches['bucket_assign']:.2f} a launch of "
+        f"{cfg.block_rows} rows)")
 
     check_join_output(x, eps, res)
     t0 = time.perf_counter()
@@ -614,6 +697,9 @@ def phase_main_path(workdir: str) -> dict:
                                            replace=False)
     rec, n_truth = brute_force_recall(x, eps, res.pairs, rows)
     t["recall_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    boundary = boundary_check(index, x, eps, res.pairs, rows)
+    t["boundary_check"] = time.perf_counter() - t0
     agree = check_query_agreement(x, Q, src, eps, q_host, q_dev)
     pipe = res.io_stats["pipeline"]
     bt = index.build_timings
@@ -652,7 +738,10 @@ def phase_main_path(workdir: str) -> dict:
                                          cfg.block_rows),
                   block_rows=cfg.block_rows, index=index, store=store)
     return dict(launches=launches, shapes=shapes, recall=rec, res=res,
-                q_host=q_host, q_dev=q_dev, src=src, cfg=cfg)
+                q_host=q_host, q_dev=q_dev, src=src, cfg=cfg,
+                rechecks=dict(verify_inband_pairs=inband,
+                              assign_rescanned_rows=rescanned),
+                boundary=boundary)
 
 
 # ---------------------------------------------------------------------------
@@ -841,8 +930,56 @@ def assign_near_ties(xb: torch.Tensor, c: torch.Tensor) -> dict:
         - ((r64 - pairs[ir[differ].long()].double()) ** 2).sum(1)
     check((gap.abs() <= 2.0 ** -20 * (r64 * r64).sum(1)).all().item(),
           "near-ties: tc and plain differ on a row that is no float32 tie")
-    return dict(rows=rows.shape[0], centers=pairs.shape[0],
-                plain_differs=int(differ.sum().item()))
+    out = dict(rows=rows.shape[0], centers=pairs.shape[0],
+               plain_differs=int(differ.sum().item()))
+    for k in (3, 4):
+        t0 = time.perf_counter()
+        x, ck = (torch.from_numpy(a).cuda()
+                 for a in tied_centers(64, c.shape[1], k, k))
+        with verify.counting_rechecks(x.device) as rechecks:
+            dk, ik = ops.bucket_assign(x, ck)
+        ds, is_ = assign.bucket_assign(x, ck, assign.LaunchPlan("simt"))
+        check(torch.equal(ik, is_) and torch.equal(dk, ds),
+              f"near-ties: tc bytes differ from simt on {k}-way ties")
+        out[f"{k}_way"] = dict(rows=x.shape[0], centers=ck.shape[0],
+                               rescanned=int(rechecks[1].item()),
+                               seconds=time.perf_counter() - t0)
+    return out
+
+
+def tied_centers(m: int, d: int, seed: int, k: int):
+    """Rows each with k centers of their own at distance 0.3 along
+    orthonormal directions, the k radii apart by a relative 1e-9 .. 1e-5
+    (log-uniform): the k nearest d² lie within the tensor cores' error of
+    each other (a copy of ``tests/tc_emulation.py::_tied_centers``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, d))
+    c = []
+    for row in x:
+        q, _ = np.linalg.qr(rng.normal(size=(d, k)))
+        tau = (np.exp(rng.uniform(np.log(1e-9), np.log(1e-5), size=k))
+               * rng.choice([-1.0, 1.0], size=k))
+        c.append(row[None] + (0.3 * (1 + tau))[:, None] * q.T)
+    return (np.ascontiguousarray(x, np.float32),
+            np.ascontiguousarray(np.concatenate(c), np.float32))
+
+
+def verify_recheck(u, v, eps2: float, tc, simt, inband: int) -> dict:
+    """The tensor-core route against the CUDA-core route on the same
+    lanes: mask bytes equal on every pair; d² bytes equal or within the
+    re-check band (``csrc/l2_sm90.cuh``; norms summed in float32 here, so
+    with a 1e-4 margin)."""
+    (d2t, mt), (d2s, ms) = tc, simt
+    check(torch.equal(mt, ms), f"tc mask differs from simt's on "
+          f"{int((mt != ms).sum().item())} pairs")
+    nu, nv = (torch.sum(t * t, dim=-1) for t in (u, v))
+    w = (verify.band_scale(u.shape[-1]) * (1 + 1e-4)
+         * (nu[..., :, None] + nv[..., None, :]) + 2.0 ** -100)
+    share = ((d2t - d2s).abs() / w).max().item()
+    check(share <= 1.0, f"tc d2 outside the band of simt's ({share})")
+    return dict(inband=inband, pairs=mt.numel(),
+                d2_equal=int((d2t == d2s).sum().item()),
+                max_band_share=share)
 
 
 def phase_kernels(main: dict) -> list[dict]:
@@ -857,7 +994,8 @@ def phase_kernels(main: dict) -> list[dict]:
     v[: E // 2] = u[: E // 2]             # half the lanes intra-bucket
     plan = verify.launch_plan(cap, cap, d)
     check(plan.route == "tc", f"main verify shape routed to {plan}")
-    d2k, mk = ops.verify_pairs_batch(u, v, eps)
+    with verify.counting_rechecks(u.device) as rechecks:
+        d2k, mk = ops.verify_pairs_batch(u, v, eps)
     d2r, mr = ref.pairwise_l2_threshold(u, v, eps2)
     torch.cuda.synchronize()
     err, n_dis = check_d2(d2k, d2r, mk, mr, eps)
@@ -867,8 +1005,14 @@ def phase_kernels(main: dict) -> list[dict]:
     ms_ = ms_.view(torch.bool)
     torch.cuda.synchronize()
     err_simt, n_dis_simt = check_d2(d2s, d2r, ms_, mr, eps)
+    t0 = time.perf_counter()
+    recheck = verify_recheck(u, v, eps2, (d2k, mk), (d2s, ms_),
+                             int(rechecks[0].item()))
     f64 = f64_agreement(u, v, eps, {"tc": (d2k, mk), "simt": (d2s, ms_),
                                     "plain": (d2r, mr)})
+    check(all(f64["tc"][k] == f64["simt"][k] for k in ("missed", "extra")),
+          f"tc and simt differ against float64: {f64}")
+    recheck["seconds"] = time.perf_counter() - t0
     del d2k, mk, d2s, ms_, d2r, mr
     ms = graph_ms(lambda: ops.verify_pairs_batch(u, v, eps))
     simt_ms = graph_ms(lambda: verify.pairwise_l2_threshold_batched(
@@ -884,6 +1028,12 @@ def phase_kernels(main: dict) -> list[dict]:
         f"disagreements {n_dis_simt}; device ms tc {ms:.4f}, simt "
         f"{simt_ms:.4f} (tc {simt_ms / ms:.2f}x faster); eager tc "
         f"{eager:.4f}")
+    log(f"[kernel] verify re-check on the {E} lanes: {recheck['inband']} "
+        f"pairs within the band of eps^2 recomputed; tc mask bytes == "
+        f"simt's on all {recheck['pairs']} pairs; tc d2 == simt's bytes on "
+        f"{recheck['d2_equal']} pairs, within the band elsewhere (max "
+        f"|tc - simt| / band {recheck['max_band_share']:.3e}); checks and "
+        f"the float64 comparison {recheck['seconds']:.1f} s")
     log(f"[kernel] verify_pairs_batch vs float64 on the same lanes "
         f"({f64['true_pairs']} true pairs): " + "; ".join(
             f"{k} mean d2 error near eps^2 {f64[k]['bias_near_eps']:+.3e}, "
@@ -897,6 +1047,7 @@ def phase_kernels(main: dict) -> list[dict]:
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
         kernel_route=plan.route, simt_ms=simt_ms, simt_max_abs_err=err_simt,
         simt_source=VERIFY_SOURCES["simt"], eager_ms=eager, f64=f64,
+        recheck=recheck, main_rechecks=main["rechecks"],
         shape=[E, cap, cap, d], ok=True))
 
     # verify, unbatched (E = 1): the device query path's (q_rows, cap) tile
@@ -935,7 +1086,7 @@ def phase_kernels(main: dict) -> list[dict]:
         launches=main["launches"]["pairwise_l2_threshold"],
         max_abs_err=err1, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
         library_ms=lib, kernel_route=plan1.route, eager_ms=eager,
-        shape=[qr, cap, d], ok=True))
+        main_rechecks=main["rechecks"], shape=[qr, cap, d], ok=True))
     del u, v, d2a, d2b, d2t
 
     # assign: one scan-2 block against the sampled centers, then against
@@ -954,11 +1105,17 @@ def phase_kernels(main: dict) -> list[dict]:
         f"wins; centers moved by 3 ulps: tc bytes == simt bytes, rows that "
         f"are centers get their own index at d2 0, plain's argmin differs "
         f"on {ties['plain_differs']} rows, each a tie within float32 "
-        f"rounding (exact d2 gap <= 2^-20 |x|^2)")
+        f"rounding (exact d2 gap <= 2^-20 |x|^2); " + "; ".join(
+            f"{k}-way ties ({ties[f'{k}_way']['rows']} rows, "
+            f"{ties[f'{k}_way']['centers']} centers): tc index and mind2 "
+            f"bytes == simt's on every row, "
+            f"{ties[f'{k}_way']['rescanned']} rows rescanned, "
+            f"{ties[f'{k}_way']['seconds']:.2f} s" for k in (3, 4)))
     out.append(dict(
         name="bucket_assign", route="cuda", source=ASSIGN_SOURCES["tc"],
         replaces="src/repro/kernels/bucket_assign.py:49",
         launches=main["launches"]["bucket_assign"], **row,
+        main_rechecks=main["rechecks"],
         kernel_route="tc", simt_source=ASSIGN_SOURCES["simt"],
         crossover={k: big[k] for k in (
             "shape", "max_abs_err", "ms", "simt_ms", "plain_ms", "bound_ms",
@@ -2579,6 +2736,9 @@ def simt_difference(index, tc_res, x: np.ndarray, eps: float,
     band = np.abs(d2 - eps2).max(initial=0.0)
     check(band <= MASK_BAND, f"{what}: a tc/simt difference lies "
           f"{band} from eps^2 (band {MASK_BAND})")
+    check(only_tc.size == 0 and only_simt.size == 0,
+          f"{what}: the tc and simt joins differ on {only_tc.size} + "
+          f"{only_simt.size} pairs")
     out = dict(tc_pairs=int(a.size), simt_pairs=int(b.size),
                only_tc=int(only_tc.size), only_simt=int(only_simt.size),
                max_from_eps2=float(band), simt_s=wall)

@@ -104,14 +104,14 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
         lib.pairwise_l2_threshold_launch.restype = i32
         lib.pairwise_l2_sm90_launch.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, i32,
-            ptr]
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, ptr,
+            i32, ptr]
         lib.pairwise_l2_sm90_launch.restype = i32
         lib.bucket_assign_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.bucket_assign_launch.restype = i32
         lib.bucket_assign_sm90_launch.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr, i32, ptr]
         lib.bucket_assign_sm90_launch.restype = i32
         strides = ctypes.POINTER(ctypes.c_longlong)
         shape = [i32] * 9  # B, Sq, T, H, Hkv, D, causal, window, q_offset

@@ -31,26 +31,42 @@
 //    leaves the block: per tile, each thread takes, for each of its two
 //    rows, the best two (d2, index) pairs of its columns, ties to the
 //    lower index (as 64-bit keys whose unsigned order is that order:
-//    branchless min and max), skipping every column whose d2 exceeds the
-//    row's second best so far; the four lanes that share a row merge
-//    theirs, and one of them merges the result into the row's best two of
-//    the earlier tiles, kept in shared memory (so they hold no registers
-//    through the main loop). The block writes its rows' two candidates to
-//    a scratch (M, S, 2).
-// 2. assign_recheck_kernel, one thread a row: merges the row's 2S
-//    candidates by their tensor-core d2, ties to the lower index, then
-//    recomputes the best two in float32 FMAs in k order (norms and dot
-//    product, bucket_assign.cu's formula) and keeps the lower, the lower
-//    index on a tie. The tensor cores round their sums toward zero, so
-//    their d2 runs a few ulps high and unevenly (PERF.md, PR 14); an
-//    argmin decided on it could flip on near-ties where float32 does not.
-//    With the re-check both the index and mind2 are float32 FMA results,
-//    bucket_assign.cu's own whenever its winner is among the tensor cores'
-//    best two (it can miss only where three centers lie within the tensor
-//    cores' error of each other). Neither the split count nor the tile a
-//    center lands in changes a result: every candidate's tensor-core d2
-//    comes from the same n64 product and k order wherever it is computed,
-//    and the best two of a total order are those of its parts' best twos.
+//    branchless min and max), and the third least d2, skipping every
+//    column whose d2 exceeds the row's third least so far; the four lanes
+//    that share a row merge theirs, and one of them merges the result into
+//    the row's of the earlier tiles, kept in shared memory (so they hold
+//    no registers through the main loop). The block writes its rows' two
+//    candidates and third d2 to a scratch (M, S, 3).
+// 2. assign_recheck_kernel, one thread a row: recomputes the row's best
+//    two candidates by tensor-core d2 in bucket_assign.cu's arithmetic
+//    (simt_d2), side by side. The tensor cores round their sums toward
+//    zero, so their d2 runs a few ulps high and unevenly (l2_sm90.cuh):
+//    on near-ties their ranking is not float32's, and the CUDA-core winner
+//    can lie anywhere among the centers within l2_sm90.cuh's band of each
+//    other. So every other candidate whose CUDA-core d2 could reach the
+//    winner so far (simt_floor of its tensor-core d2 not above it) is
+//    recomputed too, and the least (d2, index) wins, ties to the lower
+//    index as in bucket_assign.cu. A split's dropped centers lie at or
+//    above its third d2; where that one's floor does not lie above the
+//    winner (three centers of one split within the band of each other),
+//    a center pass 1 dropped could win, and the row goes on a list in the
+//    block's shared memory. Once every row of the block is decided, the
+//    block's threads rescan each listed row over the centers of each such
+//    split, four a thread at a time, in bucket_assign.cu's arithmetic. So
+//    the index and mind2 are bucket_assign.cu's, byte for byte, on every
+//    row, however many centers tie. A list per block, walked by that
+//    block, needs no third launch, no capacity and no reset, and nothing
+//    waits on the host; rows on it are rare. Why the third d2: with only
+//    each split's best two, a near-tie of two centers in one split (one
+//    row in 8,192 on random data) had to be rescanned, some 9 us at 1,000
+//    centers, and keeping the best three keys instead cost pass 1 10 %
+//    (PERF.md). `rescanned`, where not null, counts the listed rows.
+//    Neither the split count nor the tile a center lands in changes a
+//    result: every candidate's tensor-core d2 comes from the same n64
+//    product and k order wherever it is computed, the best two and the
+//    third of a total order are those of its parts', and the rescan and
+//    the recomputations are the CUDA-core arithmetic, wherever they run.
+#include <cmath>
 #include <cstdint>
 
 #include "l2_sm90.cuh"
@@ -74,34 +90,40 @@ __device__ __forceinline__ int key_index(Key k) {
 }
 constexpr Key kEmpty = (Key(0x7f800000u) << 32) | unsigned(kNone);  // +inf
 
-// (v, i) before (bv, bi): the smaller d2, the lower index on a tie
-__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
+__device__ __forceinline__ float key_d2(Key k) {
+  return __uint_as_float(unsigned(k >> 32));
 }
 
-// the best two keys k1 <= k2 of a set, one member pushed at a time
+// the best two keys k1 <= k2 of a set, and the third least d2 v3, one
+// member pushed at a time
 struct Best2 {
   Key k1 = kEmpty, k2 = kEmpty;
+  float v3 = INFINITY;
   __device__ __forceinline__ void push(Key k) {
     const Key hi = k1 > k ? k1 : k;
     k1 = k1 < k ? k1 : k;
+    const Key hi2 = k2 > hi ? k2 : hi;
     k2 = k2 < hi ? k2 : hi;
+    v3 = fminf(v3, key_d2(hi2));
   }
-  // merge the best two of lane (lane ^ off)
+  // merge those of lane (lane ^ off)
   __device__ __forceinline__ void merge_xor(int off) {
     const Key o1 = __shfl_xor_sync(0xffffffffu, k1, off);
     const Key o2 = __shfl_xor_sync(0xffffffffu, k2, off);
+    const float o3 = __shfl_xor_sync(0xffffffffu, v3, off);
     push(o1);
     push(o2);
+    v3 = fminf(v3, o3);
   }
 };
 
 // shared memory of a block: the tile's (Tile<kWG>), then each row's best
-// two keys so far
+// two keys and third d2 so far
 template <int kWG>
 struct AssignSmem {
   static constexpr int kRun = Tile<kWG>::kBytes;
-  static constexpr int kAlloc = Tile<kWG>::kAlloc + Tile<kWG>::kRows * 16;
+  static constexpr int kThird = kRun + Tile<kWG>::kRows * 16;
+  static constexpr int kAlloc = Tile<kWG>::kAlloc + Tile<kWG>::kRows * 20;
 };
 
 template <int kWG>
@@ -118,6 +140,8 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
   float* const norms = reinterpret_cast<float*>(sbase + L::kNorm);
   const float* const nb = norms + L::kRows;
   Key* const run = reinterpret_cast<Key*>(sbase + AssignSmem<kWG>::kRun);
+  float* const third =
+      reinterpret_cast<float*>(sbase + AssignSmem<kWG>::kThird);
 
   const int row0 = blockIdx.x * L::kRows;
   const int split = blockIdx.y, splits = gridDim.y;
@@ -133,7 +157,8 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
   const int rl0 = wg * 64 + warp * 16 + lane / 4;  // + 8 half
 
   if (tid < 2 * L::kRows) run[tid] = kEmpty;
-  init_ring<kWG>(base);  // its __syncthreads covers the line above
+  if (tid < L::kRows) third[tid] = __int_as_float(0x7f800000);
+  init_ring<kWG>(base);  // its __syncthreads covers the lines above
   for (int t = t0; t < t1; ++t) {
     const int col0 = t * L::kCols;
     float acc[kWG][32];
@@ -141,16 +166,16 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
     norms[tid] = tile_dots<kWG>(&tm_x, &tm_c, base, sbase, row0, col0, next,
                                 0, nk, (t - t0) * nk, acc);
     __syncthreads();
-    // the rows' second best so far: no column above it can enter the best
-    // two, so only the few at or below it are pushed (every one on the
-    // block's first tile, then, as the best two settle, few)
+    // the rows' third least d2 so far: no column above it can enter the
+    // best two or change the third, so only the few at or below it are
+    // pushed (every one on the block's first tile, then, as the best
+    // settle, few)
     float na[2], cut[2];
     Best2 best[2];  // this lane's columns of the tile, for each row
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       na[half] = norms[rl0 + 8 * half];
-      const Key second = run[2 * (rl0 + 8 * half) + 1];
-      cut[half] = __uint_as_float(unsigned(second >> 32));
+      cut[half] = third[rl0 + 8 * half];
     }
 #pragma unroll
     for (int h = 0; h < kWG; ++h)
@@ -179,8 +204,10 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
       if (q == 0) {
         best[half].push(run[2 * rl]);
         best[half].push(run[2 * rl + 1]);
+        best[half].v3 = fminf(best[half].v3, third[rl]);
         run[2 * rl] = best[half].k1;
         run[2 * rl + 1] = best[half].k2;
+        third[rl] = best[half].v3;
       }
     }
     // the next tile's loop passes a __syncthreads before it rewrites norms
@@ -190,62 +217,148 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
     for (int half = 0; half < 2; ++half) {
       const int rl = rl0 + 8 * half, r = row0 + rl;
       if (r >= M) continue;
-      const size_t o = (static_cast<size_t>(r) * splits + split) * 2;
+      const size_t o = (static_cast<size_t>(r) * splits + split) * 3;
       cand[o] = run[2 * rl];
       cand[o + 1] = run[2 * rl + 1];
+      cand[o + 2] = make_key(third[rl], kNone);
     }
   }
 }
 
-// one thread a row: the best two of its 2S candidates by tensor-core d2,
-// re-computed in float32 FMAs in k order; the lower wins, ties to the
-// lower index
-__global__ void __launch_bounds__(128)
+constexpr int kRecheckThreads = 128;
+
+// the least key of a block: every thread calls it with its own; the
+// result reaches thread 0 (`part`: a word a warp in shared memory)
+__device__ __forceinline__ Key block_min(Key k, Key* part) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Key o = __shfl_xor_sync(0xffffffffu, k, off);
+    k = o < k ? o : k;
+  }
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = k;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kRecheckThreads / 32; ++w)
+      k = part[w] < k ? part[w] : k;
+  return k;
+}
+
+// one thread a row: its best two candidates by tensor-core d2 and every
+// other candidate that could come within reach of the winner so far,
+// recomputed in bucket_assign.cu's arithmetic, the least (d2, index)
+// winning; rows where a split's dropped centers could come within reach go
+// on a list, and the block rescans those splits over their centers
+__global__ void __launch_bounds__(kRecheckThreads)
     assign_recheck_kernel(const float* __restrict__ X,
                           const float* __restrict__ C,
                           const Key* __restrict__ cand,
                           float* __restrict__ mind2, int32_t* __restrict__ idx,
-                          int M, int B, int D, int splits) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= M) return;
-  Best2 best;
-  const size_t o = static_cast<size_t>(r) * splits * 2;
-  for (int k = 0; k < 2 * splits; ++k) best.push(cand[o + k]);
-  // an empty slot (B = 1, or a split of one center) repeats the best
-  const int i1 = key_index(best.k1);
-  const int i2 = key_index(best.k2) < B ? key_index(best.k2) : i1;
-  const float4* const x = reinterpret_cast<const float4*>(X) +
-                          static_cast<size_t>(r) * (D / 4);
-  const float4* const c1 = reinterpret_cast<const float4*>(C) +
-                           static_cast<size_t>(i1) * (D / 4);
-  const float4* const c2 = reinterpret_cast<const float4*>(C) +
-                           static_cast<size_t>(i2) * (D / 4);
-  float nx = 0.f, n1 = 0.f, n2 = 0.f, dot1 = 0.f, dot2 = 0.f;
-  for (int k = 0; k < D / 4; ++k) {
-    const float4 xv = __ldg(x + k), a = __ldg(c1 + k), b = __ldg(c2 + k);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float as[4] = {a.x, a.y, a.z, a.w};
-    const float bs[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      nx = fmaf(xs[u], xs[u], nx);
-      n1 = fmaf(as[u], as[u], n1);
-      n2 = fmaf(bs[u], bs[u], n2);
-      dot1 = fmaf(xs[u], as[u], dot1);
-      dot2 = fmaf(xs[u], bs[u], dot2);
+                          int M, int B, int D, int splits, int span,
+                          unsigned long long* __restrict__ rescanned) {
+  __shared__ int listed[kRecheckThreads];
+  __shared__ Key listed_win[kRecheckThreads];
+  __shared__ float listed_nx[kRecheckThreads];
+  __shared__ int n_listed;
+  __shared__ Key part[kRecheckThreads / 32];
+  const int r = blockIdx.x * kRecheckThreads + threadIdx.x;
+  const float ku = band_scale(D);
+  if (threadIdx.x == 0) n_listed = 0;
+  __syncthreads();
+  if (r < M) {
+    const Key* const cr = cand + static_cast<size_t>(r) * splits * 3;
+    const float* const x = X + static_cast<size_t>(r) * D;
+    // the best two candidates, the least d2 of the others and of anything
+    // a split dropped
+    Best2 best;
+    float dropped = __int_as_float(0x7f800000);
+    for (int sp = 0; sp < splits; ++sp) {
+      best.push(cr[3 * sp]);
+      best.push(cr[3 * sp + 1]);
+      dropped = fminf(dropped, key_d2(cr[3 * sp + 2]));
+    }
+    // the best two side by side (an empty second, B = 1, repeats the
+    // first)
+    const int i1 = key_index(best.k1);
+    const int i2 = best.k2 != kEmpty ? key_index(best.k2) : i1;
+    const float* const c2[2] = {C + static_cast<size_t>(i1) * D,
+                                C + static_cast<size_t>(i2) * D};
+    float v[2];
+    const float nx = simt_d2<2>(x, c2, D, v);
+    Key win = make_key(v[0], i1);
+    if (make_key(v[1], i2) < win) win = make_key(v[1], i2);
+    // any other candidate whose floor does not lie above the winner so far
+    // could win or tie: recomputed too (floors rise with d2, so none can
+    // unless the third candidate's can)
+    if (simt_floor(ku, nx, best.v3) <= key_d2(win))
+      for (int k = 0; k < 3 * splits; ++k)
+        if (k % 3 != 2 && cr[k] != best.k1 && cr[k] != best.k2 &&
+            simt_floor(ku, nx, key_d2(cr[k])) <= key_d2(win)) {
+          const int i = key_index(cr[k]);
+          const float* const c1[1] = {C + static_cast<size_t>(i) * D};
+          float v1[1];
+          simt_d2<1>(x, c1, D, v1);
+          if (make_key(v1[0], i) < win) win = make_key(v1[0], i);
+        }
+    // a split's dropped centers lie at or above its third least d2
+    if (simt_floor(ku, nx, dropped) <= key_d2(win)) {
+      const int l = atomicAdd(&n_listed, 1);
+      listed[l] = r;
+      listed_win[l] = win;
+      listed_nx[l] = nx;
+    } else {
+      mind2[r] = key_d2(win);
+      idx[r] = key_index(win);
     }
   }
-  const float v1 = fmaxf(fmaf(-2.f, dot1, nx + n1), 0.f);
-  const float v2 = fmaxf(fmaf(-2.f, dot2, nx + n2), 0.f);
-  const bool second = before(v2, i2, v1, i1);
-  mind2[r] = second ? v2 : v1;
-  idx[r] = second ? i2 : i1;
+  __syncthreads();
+  if (threadIdx.x == 0 && rescanned != nullptr && n_listed > 0)
+    atomicAdd(rescanned, static_cast<unsigned long long>(n_listed));
+  // the listed rows, one at a time, over the centers of each split that
+  // could reach: each thread takes centers j, j + T, j + 2T, j + 3T (T
+  // threads), then the next 4T
+  for (int l = 0; l < n_listed; ++l) {
+    const int row = listed[l];
+    const float* const x = X + static_cast<size_t>(row) * D;
+    const Key* const cr = cand + static_cast<size_t>(row) * splits * 3;
+    Key mine = listed_win[l];
+    for (int sp = 0; sp < splits; ++sp) {
+      if (!(simt_floor(ku, listed_nx[l], key_d2(cr[3 * sp + 2])) <=
+            key_d2(listed_win[l])))  // (a floor of +inf is NaN)
+        continue;
+      const int end = min(B, (sp + 1) * span);
+      for (int j0 = sp * span + threadIdx.x; j0 < end;
+           j0 += 4 * kRecheckThreads) {
+        // past the split's end: its last center, the result unused
+        const auto center = [&](int q) {
+          const int j = min(j0 + q * kRecheckThreads, end - 1);
+          return C + static_cast<size_t>(j) * D;
+        };
+        const float* const c[4] = {center(0), center(1), center(2),
+                                   center(3)};
+        float v[4];
+        simt_d2<4>(x, c, D, v);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + q * kRecheckThreads;
+          const Key k = make_key(v[q], j);
+          if (j < end && k < mine) mine = k;
+        }
+      }
+    }
+    mine = block_min(mine, part);
+    if (threadIdx.x == 0) {
+      mind2[row] = key_d2(mine);
+      idx[row] = key_index(mine);
+    }
+    __syncthreads();  // part is rewritten by the next row
+  }
 }
 
 template <int kWG>
 cudaError_t launch(EncodeTiled fn, const float* x, const float* c,
-                   Key* cand, float* mind2, int32_t* idx,
-                   int M, int B, int D, int splits, cudaStream_t stream) {
+                   Key* cand, float* mind2, int32_t* idx, int M, int B,
+                   int D, int splits, unsigned long long* rescanned,
+                   cudaStream_t stream) {
   using L = Tile<kWG>;
   constexpr int kAlloc = AssignSmem<kWG>::kAlloc;
   auto kernel = assign_tc_kernel<kWG>;
@@ -263,27 +376,30 @@ cudaError_t launch(EncodeTiled fn, const float* x, const float* c,
   kernel<<<grid, L::kThreads, kAlloc, stream>>>(tx, tc, cand, M, B, D, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  assign_recheck_kernel<<<(M + 127) / 128, 128, 0, stream>>>(
-      x, c, cand, mind2, idx, M, B, D, splits);
+  assign_recheck_kernel<<<(M + kRecheckThreads - 1) / kRecheckThreads,
+                          kRecheckThreads, 0, stream>>>(
+      x, c, cand, mind2, idx, M, B, D, splits, per * L::kCols, rescanned);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (M, D), centers: (B, D) float32, mind2: (M,) float32, idx: (M,)
-// int32, cand: (M, splits, 2) 64-bit scratch, all
+// int32, cand: (M, splits, 3) 64-bit scratch, all
 // contiguous on device `device` with 16-byte aligned base addresses;
 // D % 4 == 0 (TMA reads rows at 16-byte strides). block_m: rows of a block
 // and columns of a center tile, 128 or 64; splits: center ranges per row
 // tile, 1 ..= the center tiles (kernels/bucket_assign.py::launch_plan).
-// Launches both passes on `stream` without synchronising; returns the
-// first nonzero cudaError_t (0 = launched).
+// rescanned: null, or a device counter that gains the launch's rescanned
+// rows. Launches both passes on `stream` without synchronising; returns
+// the first nonzero cudaError_t (0 = launched).
 extern "C" int bucket_assign_sm90_launch(const float* x, const float* centers,
                                          Key* cand, float* mind2,
                                          int32_t* idx, int M,
                                          int B, int D, int block_m,
-                                         int splits, int device,
-                                         void* stream) {
+                                         int splits,
+                                         unsigned long long* rescanned,
+                                         int device, void* stream) {
   if (M <= 0 || B <= 0 || D <= 0 || D % 4 != 0 ||
       (block_m != 64 && block_m != 128) || splits < 1 ||
       splits > (B + block_m - 1) / block_m || splits > 65535 ||
@@ -296,7 +412,9 @@ extern "C" int bucket_assign_sm90_launch(const float* x, const float* centers,
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = block_m == 128
-            ? launch<2>(fn, x, centers, cand, mind2, idx, M, B, D, splits, st)
-            : launch<1>(fn, x, centers, cand, mind2, idx, M, B, D, splits, st);
+            ? launch<2>(fn, x, centers, cand, mind2, idx, M, B, D, splits,
+                        rescanned, st)
+            : launch<1>(fn, x, centers, cand, mind2, idx, M, B, D, splits,
+                        rescanned, st);
   return static_cast<int>(err);
 }

@@ -16,7 +16,45 @@
 // step by k step) while the sum is still small, then the 4 hi.hi; the
 // partial is added to the running total in float32 (round to nearest).
 // The squared norms are float32 FMAs in k order, as the CUDA-core kernels
-// sum them.
+// sum them: the norms of both routes are the same floats.
+//
+// Deciding as the CUDA-core kernels do. Shorter partials shrink the
+// truncation's error but never remove it, so near a decision (verify's
+// d2 <= eps2, assign's argmin) the tensor cores' d2 t may fall on the other
+// side from the CUDA-core kernels' s (l2_tile.cuh: the dot as one FMA chain
+// in k order, then the same d2 expression). Where that can happen the
+// kernels recompute s (simt_d2) and decide, and write, with it. The bound
+// on |t - s|, from the arithmetic: let u = 2^-23, nk = ceil(D / 32) and
+// S = sum_k |a_k b_k| <= (|a|^2 + |b|^2) / 2. Then
+//  * the split drops a_lo.b_lo and the bits below each lo: under
+//    3 * 2^-22 |a_k b_k| a term, 6u S in all;
+//  * a wgmma k step adds its 8 exact TF32 products to the partial in one or
+//    more fused sums, each aligning its terms to the largest, truncating
+//    below the 24th bit and rounding the sum toward zero: a sum of n
+//    products errs by under (n + 2) u times its terms, so a step by under
+//    24u times its products and the partial. A chunk's 4 hi.hi steps err by
+//    under 96.3u S_c, its 8 small ones (terms under 2^-10 S_c) by under
+//    0.2u S_c; the nk partials' round-to-nearest additions by (nk - 1) u S/2;
+//  * the CUDA-core chain errs by under D u S / 2 (D roundings to nearest,
+//    each of a partial sum below S);
+//  * each route's fl(na + nb - 2 dot) rounds by under u (na + nb).
+// So |t - s| <= ((102.5 + (D + nk) / 2)(1 + D 2^-24) + 2.01) u (na + nb),
+// below the band
+//   kappa(D) u (na + nb) + 2^-100,  kappa(D) = 112 + 33 (D + nk) / 64
+// for every D below 2^19 (2^-100 covers operands flushed below float32's
+// normal range). Outside the band t and s lie on the same side
+// of any threshold; inside it verify recomputes the pair.
+// Pairs whose norms sum to 2^100 or more are left as computed: the
+// callers pad slabs with rows of 1e15 (|x|^2 >= 4e30 from D = 4), whose
+// band would take in every pair of two pad rows, and no caller reads them.
+//
+// Assign bounds the centers it did not recompute (simt_floor): for such a
+// center c with tensor-core d2 t, |x - c|^2 <= t + band and |c| <= |x| +
+// |x - c| give nx + nc <= (2 nx + 2 sqrt(nx t) + t)(1 + 3 sqrt(kappa u)),
+// so c's CUDA-core d2 is at least
+//   t - (9/8) kappa u (2 nx + 2 sqrt(nx t) + t) - 2^-99
+// while kappa u <= 2^-10 (D up to about 15,000); the bound increases with
+// t wherever it is positive.
 //
 // The loop: a block of kThreads = kRows + kCols threads, kWG warpgroups,
 // each owning 64 rows and every column of the tile (kWG wgmma m64n64k8
@@ -224,6 +262,69 @@ __device__ __forceinline__ float tile_dots(const CUtensorMap* tm_a,
     }
   }
   return norm;
+}
+
+// ---- deciding as the CUDA-core kernels do (see the top of the file) --------
+constexpr float kNoRecheck = 0x1p100f;  // na + nb from which pairs keep t
+constexpr float kBandFloor = 0x1p-100f;  // the band's absolute term
+
+// kappa(D) u: the band's share of na + nb at depth D
+__host__ __device__ inline float band_scale(int D) {
+  const int nk = (D + kChunk - 1) / kChunk;
+  return (112.f + static_cast<float>(D + nk) * (33.f / 64.f)) * 0x1p-23f;
+}
+
+// the least CUDA-core d2 of any center whose tensor-core d2 is at least t
+// (ku = band_scale(D) <= 2^-10); -inf where it cannot tell, NaN where t is
+// +inf (no such center), which no comparison passes
+__device__ __forceinline__ float simt_floor(float ku, float nx, float t) {
+  if (ku > 0x1p-10f) return -__int_as_float(0x7f800000);
+  const float w = 2.f * nx + 2.f * sqrtf(nx * t) + t;
+  return t - fmaf(1.125f * ku, w, 0x1p-99f);
+}
+
+// The CUDA-core kernels' d2 of row x against rows c[0..K), each D floats
+// (D % 4 == 0, 16-byte aligned), in global or shared memory: the norms and
+// the dot products as float32 FMA chains in k order from 0 (l2_tile.cuh),
+// then max(nx + nc - 2 dot, 0), whose doubling is exact, so that it is the
+// same float whether or not nvcc contracts it into fmaf(-2, dot, nx + nc).
+// The K chains run side by side. Returns nx.
+template <int K>
+__device__ __forceinline__ float simt_d2(const float* __restrict__ x,
+                                         const float* const (&c)[K], int D,
+                                         float (&d2)[K]) {
+  const float4* const xv = reinterpret_cast<const float4*>(x);
+  float nx = 0.f, nc[K], dot[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) nc[j] = dot[j] = 0.f;
+  constexpr int kUnroll = K == 1 ? 8 : 4;  // (K + 1) kUnroll loads in flight
+#pragma unroll kUnroll
+  for (int k = 0; k < D / 4; ++k) {
+    const float4 a4 = xv[k];
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    float b[K][4];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float4 b4 = reinterpret_cast<const float4*>(c[j])[k];
+      b[j][0] = b4.x;
+      b[j][1] = b4.y;
+      b[j][2] = b4.z;
+      b[j][3] = b4.w;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      nx = fmaf(a[q], a[q], nx);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        nc[j] = fmaf(b[j][q], b[j][q], nc[j]);
+        dot[j] = fmaf(a[q], b[j][q], dot[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    d2[j] = fmaxf(fmaf(-2.f, dot[j], nx + nc[j]), 0.f);
+  return nx;
 }
 
 // ---- host side ---------------------------------------------------------------

@@ -16,7 +16,22 @@
 //
 // Precision and main loop: l2_sm90.cuh (3xTF32 split in shared memory,
 // per-chunk partial sums against the tensor cores' truncation), which
-// bucket_assign_sm90.cu shares.
+// bucket_assign_sm90.cu shares. The mask is pairwise_l2.cu's on every pair
+// (and so is d2 wherever the mask could differ): an output whose d2 lies
+// within l2_sm90.cuh's band of eps2 is flagged as the epilogue forms it,
+// and after the tile's stores the lane that formed it recomputes it in
+// pairwise_l2.cu's arithmetic (simt_d2, reading both rows from global
+// memory, where the tile's loads have just left them in L2) and writes
+// that d2 and mask over the tensor cores'. Nothing waits on the host. A
+// recomputation holds its block through the rows' loads and a chain of D
+// FMAs, so where eps2 sits among dense pairs the launch runs longer
+// (PERF.md). Measured against this, and no faster: staging the rows in
+// the freed ring, prefetching them, and a second launch that recomputes
+// every flagged output of the grid at once (its chain of dependent loads
+// cost as much, and more on the E = 1 tile). The flag test costs the
+// epilogue a few instructions an output and the recomputation sits
+// outside its unrolled loop, which keeps its registers. `inband`, where
+// not null, counts the recomputed outputs.
 //
 // What bounds it on an H100: at the main shape (E 32 lanes of 2048 x 2048
 // x 128) the products are 34.4 GFLOP, issued three times (0.208 ms at
@@ -45,12 +60,31 @@ namespace {
 
 using namespace l2sm90;
 
+// pairwise_l2.cu's d2 and mask of the output at offset `at` of (E, M, N)
+__device__ __forceinline__ void recheck_at(const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           float* __restrict__ d2,
+                                           int8_t* __restrict__ mask, int M,
+                                           int N, int D, float eps2,
+                                           size_t at) {
+  const size_t er = at / N;  // e M + r
+  const int c = static_cast<int>(at - er * N);
+  const float* const bc[1] = {b + (er / M * N + c) * D};
+  float v[1];
+  simt_d2<1>(a + er * D, bc, D, v);
+  d2[at] = v[0];
+  mask[at] = v[0] <= eps2;
+}
+
 template <int kWG>
 __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
     pairwise_l2_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
                           const __grid_constant__ CUtensorMap tm_b,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b,
                           float* __restrict__ d2, int8_t* __restrict__ mask,
-                          int M, int N, int D, float eps2) {
+                          int M, int N, int D, float eps2,
+                          unsigned long long* __restrict__ inband) {
   using L = Tile<kWG>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzling repeats every 1024 bytes: align the tiles to it
@@ -83,6 +117,17 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
   const int warp = (tid % 128) / 32, lane = tid % 32, q = lane % 4;
   const bool even = (q & 1) == 0;
   const bool vec = (N % 4) == 0;  // 16-byte aligned rows: vector stores
+  const float ku = band_scale(D);
+  // bit ((half kWG + h) 4 + p) 4 + j: this lane's output j (columns ca,
+  // ca + 1, ca + 8, ca + 9) of (half, h, p) lies within the band of eps2
+  unsigned long long flagged = 0;
+  const auto out_row = [&](int bit) {
+    return row0 + wg * 64 + warp * 16 + lane / 4 + 8 * ((bit >> 4) / kWG);
+  };
+  const auto out_col = [&](int bit) {
+    const int p = (bit >> 2) & 3, h = (bit >> 4) % kWG, j = bit & 3;
+    return col0 + h * 64 + 16 * p + 2 * q + (j & 1) + 8 * (j >> 1);
+  };
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int rl = wg * 64 + warp * 16 + lane / 4 + 8 * half;
@@ -96,11 +141,14 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
         const int ca = h * 64 + 16 * p + 2 * q;  // group 2p's pair
         float v[4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          v[i] = fmaxf(fmaf(-2.f, acc[h][8 * p + 2 * half + i],
-                            na + nb[ca + i]), 0.f);
-          v[2 + i] = fmaxf(fmaf(-2.f, acc[h][8 * p + 4 + 2 * half + i],
-                                na + nb[ca + 8 + i]), 0.f);
+        for (int j = 0; j < 4; ++j) {
+          const int cl = ca + (j & 1) + 8 * (j >> 1);
+          const float s = na + nb[cl];
+          v[j] = fmaxf(fmaf(-2.f, acc[h][8 * p + 4 * (j >> 1) + 2 * half
+                                         + (j & 1)], s), 0.f);
+          if (fabsf(v[j] - eps2) <= fmaf(ku, s, kBandFloor) &&
+              s < kNoRecheck)
+            flagged |= 1ull << (((half * kWG + h) * 4 + p) * 4 + j);
         }
         const float s0 = even ? v[2] : v[0], s1 = even ? v[3] : v[1];
         const float t0 = __shfl_xor_sync(0xffffffffu, s0, 1);
@@ -126,13 +174,34 @@ __global__ void __launch_bounds__(Tile<kWG>::kThreads, 2)
         }
       }
   }
+  // the outputs within the band, after the warp's stores (this lane's or
+  // its neighbour's): pairwise_l2.cu's d2 and mask over the tensor cores'
+  __syncwarp();
+  if (!__any_sync(0xffffffffu, flagged != 0)) return;
+  const auto lowest = [](unsigned long long f) {
+    return __ffsll(static_cast<long long>(f)) - 1;
+  };
+  for (unsigned long long f = flagged; f != 0; f &= f - 1) {  // in range
+    const int bit = lowest(f);
+    if (out_row(bit) >= M || out_col(bit) >= N) flagged &= ~(1ull << bit);
+  }
+  if (inband != nullptr) {
+    const unsigned n = __reduce_add_sync(0xffffffffu, __popcll(flagged));
+    if (lane == 0 && n > 0)
+      atomicAdd(inband, static_cast<unsigned long long>(n));
+  }
+  const auto offset = [&](int bit) {
+    return (static_cast<size_t>(e) * M + out_row(bit)) * N + out_col(bit);
+  };
+  for (; flagged != 0; flagged &= flagged - 1)
+    recheck_at(a, b, d2, mask, M, N, D, eps2, offset(lowest(flagged)));
 }
 
 // ---- host side ---------------------------------------------------------------
 template <int kWG>
 cudaError_t launch(EncodeTiled fn, const float* a, const float* b, float* d2,
                    int8_t* mask, int E, int M, int N, int D, float eps2,
-                   cudaStream_t stream) {
+                   unsigned long long* inband, cudaStream_t stream) {
   using L = Tile<kWG>;
   auto kernel = pairwise_l2_tc_kernel<kWG>;
   static int configured_for = -1;  // once per instantiation and device
@@ -145,8 +214,8 @@ cudaError_t launch(EncodeTiled fn, const float* a, const float* b, float* d2,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + L::kCols - 1) / L::kCols, (M + L::kRows - 1) / L::kRows,
                   E);
-  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(ta, tb, d2, mask, M, N, D,
-                                                    eps2);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(ta, tb, a, b, d2, mask, M,
+                                                    N, D, eps2, inband);
   return cudaGetLastError();
 }
 
@@ -155,13 +224,15 @@ cudaError_t launch(EncodeTiled fn, const float* a, const float* b, float* d2,
 // a: (E, M, D), b: (E, N, D), d2: (E, M, N) float32, mask: (E, M, N) int8,
 // all contiguous on device `device` with 16-byte aligned base addresses;
 // D % 4 == 0 (TMA reads rows at 16-byte strides). block_m: output rows of
-// a block, 128 or 64 (kernels/pairwise_l2.py::launch_plan). Launches on
-// `stream` without synchronising; returns the first nonzero cudaError_t
-// (0 = launched).
+// a block, 128 or 64 (kernels/pairwise_l2.py::launch_plan). inband: null,
+// or a device counter that gains the launch's recomputed outputs. Launches
+// on `stream` without synchronising; returns the first nonzero
+// cudaError_t (0 = launched).
 extern "C" int pairwise_l2_sm90_launch(const float* a, const float* b,
                                        float* d2, int8_t* mask, int E, int M,
                                        int N, int D, float eps2, int block_m,
-                                       int device, void* stream) {
+                                       unsigned long long* inband, int device,
+                                       void* stream) {
   if (E <= 0 || M <= 0 || N <= 0 || D <= 0 || D % 4 != 0 ||
       (block_m != 64 && block_m != 128) || !aligned16(a) || !aligned16(b) ||
       !aligned16(d2) || !aligned16(mask))
@@ -173,7 +244,7 @@ extern "C" int pairwise_l2_sm90_launch(const float* a, const float* b,
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = block_m == 128
-            ? launch<2>(fn, a, b, d2, mask, E, M, N, D, eps2, st)
-            : launch<1>(fn, a, b, d2, mask, E, M, N, D, eps2, st);
+            ? launch<2>(fn, a, b, d2, mask, E, M, N, D, eps2, inband, st)
+            : launch<1>(fn, a, b, d2, mask, E, M, N, D, eps2, inband, st);
   return static_cast<int>(err);
 }

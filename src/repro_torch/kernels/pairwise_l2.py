@@ -6,16 +6,25 @@ by ``launch_plan`` from the operand shapes alone (never from E):
 * ``"tc"`` — rows 16-byte aligned (d % 4 == 0: the whole main path):
   ``csrc/pairwise_l2_sm90.cu``, split-precision (3×TF32) ``wgmma`` on the
   tensor cores fed by TMA, in 128 × 128 output tiles, or 64 × 64 where
-  M ≤ 64 (the point queries' tile);
+  M ≤ 64 (the point queries' tile). It gives the ``simt`` route's mask on
+  every pair: an output whose d² lies within a band of ε² derived from the
+  arithmetic (``csrc/l2_sm90.cuh``: κ(d)·2⁻²³·(‖a‖² + ‖b‖²)) is recomputed
+  in the ``simt`` route's float32 arithmetic, and its d² and mask are
+  ``simt``'s bytes. Elsewhere d² is the tensor cores' own (within the band
+  of ``simt``'s). Pairs whose squared norms sum to 2¹⁰⁰ or more (the
+  callers' pad rows, 1e15 in every coordinate) are not recomputed;
 * ``"simt"`` — the rest: ``csrc/pairwise_l2.cu`` on the CUDA cores.
 
 There is no fallback between routes: a refused launch raises. Callers go
 through ``ops``, which checks inputs, dispatches by device and counts
-launches."""
+launches. ``counting_rechecks`` tallies, on the card, the pairs the
+``tc`` route recomputed and the rows the assign kernel rescanned."""
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -23,6 +32,43 @@ from repro_torch.kernels import _build
 TC_ALIGN = 4        # d % 4 == 0: TMA reads the rows at 16-byte strides
 SMALL_ROWS = 64     # M at or below which the tensor-core route takes 64-row
 ROUTE_COUNTERS = {"tc": "verify_tc", "simt": "verify_simt"}
+# the tensor-core kernels' re-check tallies while ``counting_rechecks`` is
+# on: a (2,) int64 tensor on one card, [0] verify's recomputed pairs, [1]
+# assign's rescanned rows; None (the kernels get a null pointer) otherwise
+RECHECKS: torch.Tensor | None = None
+
+
+@contextlib.contextmanager
+def counting_rechecks(device):
+    """Tally the ``tc`` routes' re-checks on ``device`` inside the block:
+    yields the (2,) int64 counts, which the kernels add to on the device
+    (read them after the block; nothing here synchronises). Launches on
+    another device are not counted."""
+    global RECHECKS
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    RECHECKS = counts
+    try:
+        yield counts
+    finally:
+        RECHECKS = None
+
+
+def recheck_counter(device: torch.device, which: int) -> int:
+    """The device address of tally ``which`` for a launch on ``device``,
+    or 0 (none)."""
+    counts = RECHECKS
+    if counts is None or counts.device != device:
+        return 0
+    return counts.data_ptr() + 8 * which
+
+
+def band_scale(d: int) -> float:
+    """κ(d)·2⁻²³ of the re-check band, ``csrc/l2_sm90.cuh::band_scale``:
+    a pair's ``tc`` and ``simt`` d² differ by at most
+    ``band_scale(d) * (|a|² + |b|²) + 2⁻¹⁰⁰``."""
+    nk = np.float32(-(-d // 32))
+    return float((np.float32(112.0) + (np.float32(d) + nk)
+                  * np.float32(33.0 / 64.0)) * np.float32(2.0 ** -23))
 
 
 @dataclass(frozen=True)
@@ -55,6 +101,8 @@ def pairwise_l2_threshold_batched(a: torch.Tensor, b: torch.Tensor,
     (d2 (E, M, N) float32, mask (E, M, N) int8), launched on the current
     stream by ``plan``'s route. ``eps2`` is passed to the kernel as a
     float32."""
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the verify kernels read contiguous operands")
     e, m, d = a.shape
     n = b.shape[1]
     d2 = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
@@ -65,7 +113,8 @@ def pairwise_l2_threshold_batched(a: torch.Tensor, b: torch.Tensor,
         a, b = aligned(a), aligned(b)
         rc = lib.pairwise_l2_sm90_launch(
             a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),
-            e, m, n, d, eps2, plan.block_m, a.device.index, stream)
+            e, m, n, d, eps2, plan.block_m, recheck_counter(a.device, 0),
+            a.device.index, stream)
     else:
         rc = lib.pairwise_l2_threshold_launch(
             a.data_ptr(), b.data_ptr(), d2.data_ptr(), mask.data_ptr(),

@@ -1,11 +1,14 @@
 """The design of the tensor-core assign kernel (``csrc/bucket_assign_sm90.cu``)
 checked on the CPU before the card: its two passes, emulated in torch
 (3×TF32 d² with per-chunk partials truncated toward zero, the best two per
-center split, their merge, and the float32 re-check of the winners),
-against the JAX package's Pallas ``bucket_assign`` in interpret mode; and
-the route function ``kernels/bucket_assign.py::launch_plan`` with the
-dispatch around it. The kernel itself is held against its plain version
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+center split, their merge, the float32 re-check of the winners, the bound
+on every other center and the rescan where it cannot rule them out),
+against the JAX package's Pallas ``bucket_assign`` in interpret mode and
+against the CUDA-core route's arithmetic, whose index and d² it must give
+on every row however many centers tie; and the route function
+``kernels/bucket_assign.py::launch_plan`` with the dispatch around it. The
+kernel itself is held against its plain version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import inspect
 from types import SimpleNamespace
 
@@ -18,55 +21,93 @@ from repro.data import clustered_vectors  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bucket_assign as assign  # noqa: E402
+from repro_torch.kernels.pairwise_l2 import band_scale  # noqa: E402
 from tc_emulation import (F32_ORDER_GAP, fma_dot,  # noqa: E402
-                          tc_emulation, three_way_ties)
+                          four_way_ties, simt_emulation, tc_emulation,
+                          three_way_ties)
 
 D2_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py's d² tolerance
 
 
-def _best2(v: torch.Tensor, i: torch.Tensor):
-    """The best two (d², index) of each row, ties to the lower index."""
+def _best(v: torch.Tensor, i: torch.Tensor, k: int = 2):
+    """The best k (d², index) of each row, ties to the lower index."""
     order = torch.argsort(i, dim=1, stable=True)
     v, i = v.gather(1, order), i.gather(1, order)
-    order = torch.argsort(v, dim=1, stable=True)[:, :2]
+    order = torch.argsort(v, dim=1, stable=True)[:, :k]
     return v.gather(1, order), i.gather(1, order)
+
+
+def simt_floor(ku: float, nx: torch.Tensor, t: torch.Tensor):
+    """``csrc/l2_sm90.cuh::simt_floor``: the least CUDA-core d² of any
+    center whose tensor-core d² is at least t (float64 here; the bound's
+    slack covers the kernel's float32 evaluation)."""
+    nx, t = nx.double(), t.double()
+    w = 2.0 * nx + 2.0 * torch.sqrt(nx * t) + t
+    return t - (1.125 * ku * w + 2.0 ** -99)
 
 
 def tc_assign_emulation(x: torch.Tensor, c: torch.Tensor, splits: int,
                         block: int):
     """The kernel's two passes on (M, D) × (B, D) float32 → (mind2, idx,
-    first): pass 1's tensor-core d² (``tc_emulation``), the best two of
-    each of ``splits`` contiguous ranges of ``block``-wide center tiles,
-    merged by tensor-core d²; pass 2 recomputes the best two as float32
-    FMA chains in k order and keeps the lower, ties to the lower index.
-    ``first``: pass 1's own winner, before the re-check."""
-    tc = tc_emulation(x[None], c[None], 0.0)[0][0]
+    first, rescanned): pass 1's tensor-core d² (``tc_emulation`` without
+    the verify re-check) and the best two of each of ``splits`` contiguous
+    ranges of ``block``-wide center tiles; pass 2 recomputes as float32
+    FMA chains in k order the best two candidates and every other one
+    whose ``simt_floor`` does not lie above the winner, the least (d²,
+    index) winning, and rescans (``f32_assign``) the rows where a split's second
+    candidate's floor does not lie above it. ``first``: pass 1's own
+    winner, before the re-check; ``rescanned``: the rows pass 2
+    rescanned."""
+    tc = tc_emulation(x[None], c[None], 0.0, recheck=False)[0][0]
     m, b = tc.shape
     tiles = -(-b // block)
     per = -(-tiles // splits)
     cols = torch.arange(b).expand(m, b)
-    cand = [_best2(tc[:, lo:lo + per * block], cols[:, lo:lo + per * block])
-            for lo in range(0, b, per * block)]
-    v, i = _best2(torch.cat([v for v, _ in cand], 1),
-                  torch.cat([i for _, i in cand], 1))
-    if b == 1:
-        v, i = v.expand(m, 2), i.expand(m, 2)
+    cand, thirds = [], []
+    for lo in range(0, b, per * block):
+        v, i = _best(tc[:, lo:lo + per * block], cols[:, lo:lo + per * block],
+                     3)
+        if v.shape[1] < 3:  # under three centers: empty slots
+            pad = 3 - v.shape[1]
+            v = torch.cat([v, torch.full((m, pad), float("inf"))], 1)
+            i = torch.cat([i, torch.full((m, pad), -1)], 1)
+        cand.append((v[:, :2], i[:, :2]))
+        thirds.append(v[:, 2].double())
+    cv = torch.cat([v for v, _ in cand], 1).double()
+    ci = torch.cat([i for _, i in cand], 1)
+    ku = band_scale(x.shape[1])
     nx = fma_dot(x, x)
-    d2 = torch.stack([torch.clamp_min(
-        (nx + fma_dot(c[i[:, k]], c[i[:, k]])) - 2.0 * fma_dot(x, c[i[:, k]]),
-        0.0) for k in (0, 1)], 1)
-    second = (d2[:, 1] < d2[:, 0]) | ((d2[:, 1] == d2[:, 0])
-                                      & (i[:, 1] < i[:, 0]))
-    k = second.long()[:, None]
-    return d2.gather(1, k)[:, 0], i.gather(1, k)[:, 0], i[:, 0]
+    simt = simt_emulation(x[None], c[None], 0.0)[0][0]
+    _, two = _best(cv, ci)
+    two = torch.where(two >= 0, two, two[:, :1])  # an empty second: the first
+    first = two[:, 0]
+    v2 = simt.gather(1, two).double()
+    k2 = ((v2[:, 1] < v2[:, 0]) | ((v2[:, 1] == v2[:, 0])
+                                   & (two[:, 1] < two[:, 0]))).long()
+    key = torch.stack([v2.gather(1, k2[:, None])[:, 0],
+                       two.gather(1, k2[:, None])[:, 0].double()], 1)
+    for k in range(ci.shape[1]):                  # others within reach
+        reach = ((ci[:, k] >= 0) & (ci[:, k] != two[:, 0])
+                 & (ci[:, k] != two[:, 1])
+                 & (simt_floor(ku, nx, cv[:, k]) <= key[:, 0]))
+        j = ci[:, k].clamp_min(0)
+        vk = simt.gather(1, j[:, None])[:, 0].double()
+        better = reach & ((vk < key[:, 0])
+                          | ((vk == key[:, 0]) & (j.double() < key[:, 1])))
+        key = torch.where(better[:, None], torch.stack([vk, j.double()], 1),
+                          key)
+    dropped = torch.stack(thirds, 1).min(1).values  # what the splits dropped
+    rescanned = simt_floor(ku, nx, dropped) <= key[:, 0]
+    full_d2, full_idx = f32_assign(x, c)
+    mind2 = torch.where(rescanned, full_d2, key[:, 0].float())
+    idx = torch.where(rescanned, full_idx, key[:, 1].long())
+    return mind2, idx, first, rescanned
 
 
 def f32_assign(x: torch.Tensor, c: torch.Tensor):
     """The CUDA-core kernel's function: every d² as float32 FMA chains in k
-    order, the lowest index of the minimum."""
-    nx, nc = fma_dot(x, x), fma_dot(c, c)
-    dots = torch.stack([fma_dot(x, cj.expand_as(x)) for cj in c], 1)
-    d2 = torch.clamp_min((nx[:, None] + nc[None]) - 2.0 * dots, 0.0)
+    order (``simt_emulation``), the lowest index of the minimum."""
+    d2 = simt_emulation(x[None], c[None], 0.0)[0][0]
     idx = torch.argmin(d2, dim=1)
     return d2.gather(1, idx[:, None])[:, 0], idx
 
@@ -127,7 +168,8 @@ def test_tc_assign_arithmetic_matches_jax_pallas(kind, m, b, d):
     tiles = -(-b // block)
     first = None
     for splits in sorted({1, 2, 3, tiles}):
-        d2, idx, _ = tc_assign_emulation(xt, ct, min(splits, tiles), block)
+        d2, idx, _, _ = tc_assign_emulation(xt, ct, min(splits, tiles),
+                                            block)
         assert np.array_equal(idx.numpy(), idx_want)
         np.testing.assert_allclose(d2.numpy(), d2_want, **D2_TOL)
         if first is None:
@@ -151,8 +193,8 @@ def test_tc_assign_decides_near_ties_in_float32(m, b, d):
     block = assign.launch_plan(m, b, d).block_m
     tiles = -(-b // block)
     for splits in sorted({1, 2, tiles}):
-        d2, idx, first = tc_assign_emulation(xt, ct, min(splits, tiles),
-                                             block)
+        d2, idx, first, _ = tc_assign_emulation(xt, ct, min(splits, tiles),
+                                                block)
         assert torch.equal(idx, idx_f32) and torch.equal(d2, d2_f32)
     assert (first != idx).sum() >= 5  # the re-check changed the answer
     d2_want, idx_want = _jax_assign(x, c)
@@ -166,38 +208,56 @@ def test_tc_assign_decides_near_ties_in_float32(m, b, d):
 
 @pytest.mark.parametrize("m,d,seed", [(64, 128, 1), (48, 96, 2)])
 def test_tc_assign_three_way_near_ties(m, d, seed):
-    """ROADMAP §3 fault 2: where a row's three nearest centers lie within
-    the tensor cores' error of each other, the float32 exact winner (the
-    CUDA-core route's, ``simt``) can fall third in pass 1's ranking, and
-    the re-check of the best two then cannot restore it. How many rows
-    lose it here is recorded in ROADMAP §3, not held: it is a property of
-    the emulation's rounding, which the card's need not share. What
-    holds: the result differs from ``simt``'s only on rows whose ``simt``
-    winner left pass 1's best two; each such row's three nearest exact d²
-    lie within float32 rounding of each other (the ``F32_ORDER_GAP``
-    band, where two float32 orders also disagree), and d² is within the
-    kernels' tolerance everywhere."""
-    x, c = three_way_ties(m, d, seed)
+    """Where a row's three nearest centers lie within the tensor cores'
+    error of each other, the float32 exact winner (the CUDA-core route's,
+    ``simt``) can fall third in pass 1's ranking, where a re-check of the
+    best two alone loses it (this data does that on some rows). The bound
+    on the other centers sends those rows to the rescan, and the index
+    and d² are ``simt``'s on every row."""
+    _assert_simt_on_ties(*three_way_ties(m, d, seed))
+
+
+@pytest.mark.parametrize("m,d,seed", [(64, 128, 3), (48, 96, 4)])
+def test_tc_assign_four_way_near_ties(m, d, seed):
+    """As the three-way case, with four centers within the tensor cores'
+    error of each other: keeping the best three would lose rows here."""
+    _assert_simt_on_ties(*four_way_ties(m, d, seed))
+
+
+def _assert_simt_on_ties(x: np.ndarray, c: np.ndarray):
     xt, ct = torch.from_numpy(x), torch.from_numpy(c)
     d2_f32, idx_f32 = f32_assign(xt, ct)
-    block = assign.launch_plan(m, c.shape[0], d).block_m
-    d2, idx, _ = tc_assign_emulation(xt, ct, 1, block)
-    tc = tc_emulation(xt[None], ct[None], 0.0)[0][0]
-    _, best2 = _best2(tc, torch.arange(tc.shape[1]).expand_as(tc))
-    kept = (best2 == idx_f32[:, None]).any(1)
-    lost = (idx != idx_f32).numpy()
-    assert np.array_equal(lost, ~kept.numpy())
-    np.testing.assert_allclose(d2.numpy(), d2_f32.numpy(), **D2_TOL)
-    x64 = x.astype(np.float64)
-    exact = np.sort(((x64[:, None] - c[None]) ** 2).sum(-1), axis=1)
-    spread3 = exact[:, 2] - exact[:, 0]
-    assert (spread3[lost] <= F32_ORDER_GAP * (x64[lost] ** 2).sum(1)).all()
+    block = assign.launch_plan(x.shape[0], c.shape[0], x.shape[1]).block_m
+    tiles = -(-c.shape[0] // block)
+    for splits in sorted({1, 2, tiles}):
+        d2, idx, _, rescanned = tc_assign_emulation(
+            xt, ct, min(splits, tiles), block)
+        assert torch.equal(idx, idx_f32) and torch.equal(d2, d2_f32)
+    tc = tc_emulation(xt[None], ct[None], 0.0, recheck=False)[0][0]
+    _, best2 = _best(tc, torch.arange(tc.shape[1]).expand_as(tc))
+    lost = ~(best2 == idx_f32[:, None]).any(1)
+    assert lost.any()                 # the best two alone would lose these
+    assert rescanned.any()            # ... and the bound sent rows on
+
+
+def test_tc_assign_rescans_few_rows_of_clustered_data():
+    """On data like the build's (200 centers drawn from a clustered set of
+    20,000, 512 other rows of it) the bound settles nearly every row with
+    the recomputed candidates: the rescan stays rare, and the result is
+    the CUDA-core route's."""
+    x = clustered_vectors(20_000, 128, seed=5)
+    pick = np.random.default_rng(5).choice(20_000, 712, replace=False)
+    xt, ct = torch.from_numpy(x[pick[:512]]), torch.from_numpy(x[pick[512:]])
+    d2, idx, _, rescanned = tc_assign_emulation(xt, ct, 2, 128)
+    d2_f32, idx_f32 = f32_assign(xt, ct)
+    assert torch.equal(idx, idx_f32) and torch.equal(d2, d2_f32)
+    assert rescanned.sum() <= 512 // 100
 
 
 def test_tc_assign_single_center():
     x, c = _data("randn", 9, 1, 8, seed=1)
-    d2, idx, _ = tc_assign_emulation(torch.from_numpy(x),
-                                     torch.from_numpy(c), 1, 64)
+    d2, idx, _, _ = tc_assign_emulation(torch.from_numpy(x),
+                                        torch.from_numpy(c), 1, 64)
     d2_want, idx_want = _jax_assign(x, c)
     assert idx.tolist() == idx_want.tolist() == [0] * 9
     np.testing.assert_allclose(d2.numpy(), d2_want, **D2_TOL)
@@ -267,3 +327,12 @@ def test_refused_launch_raises(monkeypatch, route):
     x = torch.zeros(8, 16)
     with pytest.raises(RuntimeError, match=f"{route} kernel launch failed"):
         assign.bucket_assign(x, x, assign.LaunchPlan(route))
+
+
+def test_strided_operands_are_refused():
+    """The kernel reads its operands' memory row after row: a strided view
+    (a transposed array from numpy, say) raises instead of being read as
+    other rows."""
+    x = torch.zeros(16, 8).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        assign.bucket_assign(x, x.contiguous(), assign.LaunchPlan("tc"))

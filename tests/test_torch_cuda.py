@@ -166,6 +166,62 @@ def test_verify_pad_rows_stay_outside_eps(cuda):
                   v[:, :90], eps)
 
 
+def _lanes_of(kind: str, d: int):
+    """(a, b, ε) on the card: ``near_eps_lanes`` (pairs at float64
+    d² = ε²(1 ± τ), τ 1e-9 .. 1e-5), or normal rows with ε² at the median
+    d², where about 1e-4 of the pairs fall in the re-check band."""
+    from tc_emulation import near_eps_lanes
+    if kind == "near_eps":
+        a, b, eps2 = near_eps_lanes(4, 256, 192, d, seed=d)
+        return (torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+                float(np.sqrt(eps2)))
+    u, v, _ = _verify_inputs(torch.device("cuda"), 4, 256, 192, d, seed=d)
+    return u, v, float(np.sqrt(2.0 * d))
+
+
+@pytest.mark.parametrize("kind,d", [("near_eps", 4), ("near_eps", 96),
+                                    ("near_eps", 128), ("near_eps", 960),
+                                    ("randn", 128)])
+def test_verify_tc_gives_simt_mask(cuda, kind, d):
+    """The tensor-core route decides as the CUDA-core one: its mask bytes
+    are the CUDA-core route's on every pair; its d² lies within the band
+    of theirs everywhere and is their bytes wherever their d² lies within
+    half the band of ε² (every such pair is inside the band); the
+    recomputed pairs are counted."""
+    from tc_emulation import band
+    u, v, eps = _lanes_of(kind, d)
+    eps2 = ops.eps2_f32(eps)
+    with verify.counting_rechecks(cuda) as counts:
+        d2t, mt = ops.verify_pairs_batch(u, v, eps)
+    d2s, ms = verify.pairwise_l2_threshold_batched(
+        u, v, eps2, verify.LaunchPlan("simt"))
+    torch.cuda.synchronize()
+    assert torch.equal(mt.view(torch.int8), ms)
+    w = band(u.cpu(), v.cpu()).to(cuda)
+    assert ((d2t.double() - d2s.double()).abs() <= w).all()
+    sure = (d2s.double() - eps2).abs() <= w / 2
+    assert sure.any() and torch.equal(d2t[sure], d2s[sure])
+    assert counts[0].item() >= int(sure.sum().item())
+    assert counts[1].item() == 0
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_simt_kernel_is_the_fma_chain(cuda, d):
+    """The CUDA-core kernel's d² bytes are ``simt_emulation``'s: norms and
+    dot products as FMA chains in k order and one rounding each for the
+    sum of the norms and the difference, whatever nvcc does with
+    ``na + nb - 2.0f * acc`` (the doubling is exact, so a contracted FMA
+    gives the same float). The tensor-core route's re-check computes this
+    function."""
+    from tc_emulation import near_eps_lanes, simt_emulation
+    a, b, eps2 = near_eps_lanes(1, 64, 48, d, seed=3)
+    got, _ = verify.pairwise_l2_threshold_batched(
+        torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(), eps2,
+        verify.LaunchPlan("simt"))
+    want, _ = simt_emulation(torch.from_numpy(a), torch.from_numpy(b), eps2)
+    assert torch.equal(got.cpu(), want)
+
+
 def _assert_assign_routes(route: str, n: int) -> None:
     for r, counter in assign.ROUTE_COUNTERS.items():
         assert ops.LAUNCHES[counter] == (n if r == route else 0), \
@@ -475,29 +531,38 @@ def test_two_replica_schedulers_count_every_verify_launch(cuda, tmp_path,
 
 
 def test_three_way_assign_ties_differ_only_in_float32_band(cuda):
-    """ROADMAP §3 fault 2 on the card: rows whose three nearest centers lie
-    within the tensor cores' error (``test_torch_assign_tc.py``'s data).
-    The ``tc`` route's argmin may differ from ``simt``'s, but only on rows
-    whose three nearest exact d² lie within float32 rounding of each other
-    (2^-20 |x|²), and d² stays within tolerance. The count that differs
-    is printed for the record."""
-    from tc_emulation import F32_ORDER_GAP, three_way_ties
-    x, c = three_way_ties(64, 128, 1)
+    """Near-ties on the card: rows whose three nearest
+    centers lie within the tensor cores' error
+    (``test_torch_assign_tc.py``'s data). The ``tc`` route's index and
+    mind2 are ``simt``'s bytes on every row (so they differ nowhere, in
+    the float32 band or out of it); the rows the bound could not settle
+    were rescanned and counted."""
+    from tc_emulation import three_way_ties
+    _assert_tc_assign_is_simt(cuda, *three_way_ties(64, 128, 1))
+
+
+def test_four_way_assign_ties_give_simt_bytes(cuda):
+    """As the three-way case, with four centers a row within the tensor
+    cores' error of each other."""
+    from tc_emulation import four_way_ties
+    _assert_tc_assign_is_simt(cuda, *four_way_ties(64, 128, 3))
+
+
+def _assert_tc_assign_is_simt(cuda, x: np.ndarray, c: np.ndarray):
     xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
     plan = assign.launch_plan(xt.shape[0], ct.shape[0], ct.shape[1])
     assert plan.route == "tc"
-    d2t, it = assign.bucket_assign(xt, ct, plan)
     d2s, is_ = assign.bucket_assign(xt, ct, assign.LaunchPlan("simt"))
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(d2t.cpu().numpy(), d2s.cpu().numpy(),
-                               **D2_TOL)
-    lost = (it != is_).cpu().numpy()
-    x64 = x.astype(np.float64)
-    exact = np.sort(((x64[:, None] - c[None]) ** 2).sum(-1), axis=1)
-    spread3 = exact[:, 2] - exact[:, 0]
-    assert (spread3[lost] <= F32_ORDER_GAP * (x64[lost] ** 2).sum(1)).all()
-    print(f"three-way ties: tc and simt argmin differ on {lost.sum()} of "
-          f"{len(lost)} rows")
+    tiles = -(-ct.shape[0] // plan.block_m)
+    for splits in sorted({1, 2, plan.splits, tiles}):
+        with verify.counting_rechecks(cuda) as counts:
+            d2t, it = assign.bucket_assign(xt, ct, assign.LaunchPlan(
+                "tc", plan.block_m, min(splits, tiles)))
+        torch.cuda.synchronize()
+        assert torch.equal(it, is_) and torch.equal(d2t, d2s)
+        assert counts[1].item() > 0 and counts[0].item() == 0
+        print(f"splits {splits}: {counts[1].item()} of {len(x)} rows "
+              f"rescanned")
 
 
 def test_resumed_build_on_card_is_byte_identical(cuda, tmp_path,

@@ -1,10 +1,13 @@
 """The design of the tensor-core verify kernel (``csrc/pairwise_l2_sm90.cu``)
-checked on the CPU before the card: its 3×TF32 arithmetic, emulated in
-torch, against the JAX package's Pallas ``pairwise_l2_threshold_batched``
-in interpret mode, at ``tests/test_kernels.py``'s d² tolerance; and the
-route function ``kernels/pairwise_l2.py::launch_plan`` with the dispatch
-around it. The kernel itself is held against its plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+checked on the CPU before the card: its 3×TF32 arithmetic and the
+CUDA-core kernel's, emulated in torch, against the JAX package's Pallas
+``pairwise_l2_threshold_batched`` in interpret mode, at
+``tests/test_kernels.py``'s d² tolerance; the band that bounds the two
+routes' difference, and the re-check inside it that gives the CUDA-core
+route's mask on every pair; and the route function
+``kernels/pairwise_l2.py::launch_plan`` with the dispatch around it. The
+kernel itself is held against its plain version and the CUDA-core route on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import inspect
 from types import SimpleNamespace
 
@@ -20,7 +23,8 @@ from repro.kernels.pairwise_l2 import (  # noqa: E402
     pairwise_l2_threshold_batched)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import pairwise_l2 as verify  # noqa: E402
-from tc_emulation import (round_toward_zero, tc_emulation,  # noqa: E402
+from tc_emulation import (band, near_eps_lanes,  # noqa: E402
+                          round_toward_zero, simt_emulation, tc_emulation,
                           tf32_rna)
 
 D2_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_kernels.py's d² tolerance
@@ -67,6 +71,72 @@ def test_tc_arithmetic_matches_jax_pallas(kind, e, m, n, d):
     assert mask_want.any()
     if kind == "sift_ints":  # integer data: every product and sum is exact
         assert np.array_equal(d2.numpy(), d2_want)
+
+
+@pytest.mark.parametrize("kind", ["randn", "clustered", "sift_ints"])
+def test_simt_arithmetic_matches_jax_pallas(kind):
+    """The CUDA-core route's arithmetic, whose d² the tensor-core route
+    takes inside the band, held to the JAX kernel as the ``tc`` one is."""
+    a, b, eps2 = _data(kind, 2, 64, 96, 96, seed=7)
+    d2, mask = simt_emulation(torch.from_numpy(a), torch.from_numpy(b), eps2)
+    d2_want, mask_want = _jax_verify(a, b, eps2)
+    _check(d2.numpy(), mask.numpy(), d2_want, mask_want, eps2)
+    if kind == "sift_ints":  # integer data: every product and sum is exact
+        assert np.array_equal(d2.numpy(), d2_want)
+
+
+def _band_data(kind: str, d: int, seed: int):
+    """(a (1, 32, d), b (1, 40, d)) float32 of one kind."""
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        x = clustered_vectors(72, d, seed=seed)
+        return x[None, :32], x[None, 32:]
+    a = rng.normal(size=(1, 32, d))
+    if kind == "large_norm":    # |x|² ~ 1e8 d, neighbours 1e2 apart
+        a = 1e4 + 10.0 * a
+        b = a[:, rng.integers(0, 32, size=40)] + rng.normal(size=(1, 40, d))
+    elif kind == "near_dup":    # copies moved by 1e-4 in each coordinate
+        b = a[:, rng.integers(0, 32, size=40)] \
+            + 1e-4 * rng.normal(size=(1, 40, d))
+    else:
+        b = rng.normal(size=(1, 40, d))
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["randn", "clustered", "large_norm",
+                                  "near_dup"])
+@pytest.mark.parametrize("d", [4, 96, 128, 960])
+def test_band_bounds_tc_against_simt(kind, d):
+    """The band derived in ``csrc/l2_sm90.cuh`` holds with a margin of 2:
+    the emulated tensor-core d² and the CUDA-core d² of every pair differ
+    by at most half of it (and do differ, so the bound is not idle)."""
+    a, b = (torch.from_numpy(t) for t in _band_data(kind, d, seed=d))
+    t, _ = tc_emulation(a, b, 0.0, recheck=False)
+    s, _ = simt_emulation(a, b, 0.0)
+    w = band(a, b)
+    assert (w > 0).all()
+    ratio = ((t.double() - s.double()).abs() / w).max().item()
+    assert ratio <= 0.5, ratio
+    assert (t != s).any()
+
+
+@pytest.mark.parametrize("d", [4, 96, 128, 960])
+def test_recheck_gives_simt_mask_on_near_eps_lanes(d):
+    """The ε test near the boundary, emulated: on lanes with pairs at
+    float64 d² = ε²(1 ± τ), τ 1e-9 .. 1e-5, the tensor cores' own mask differs
+    from the CUDA-core route's; with the re-check it is the CUDA-core
+    route's on every pair, and every pair inside the band carries the
+    CUDA-core route's d² bytes."""
+    a, b, eps2 = (near_eps_lanes(2, 48, 40, d, seed=d))
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    raw, raw_mask = tc_emulation(a, b, eps2, recheck=False)
+    d2, mask = tc_emulation(a, b, eps2)
+    s, s_mask = simt_emulation(a, b, eps2)
+    inside = (raw.double() - eps2).abs() <= band(a, b)
+    assert (raw_mask != s_mask).any()       # the lanes reach the fault
+    assert torch.equal(mask, s_mask)
+    assert inside.sum() >= 40 and torch.equal(d2[inside], s[inside])
+    assert torch.equal(d2[~inside], raw[~inside])
 
 
 def test_tc_arithmetic_keeps_pad_rows_outside_eps():
@@ -171,3 +241,12 @@ def test_refused_launch_raises(monkeypatch, route):
     with pytest.raises(RuntimeError, match=f"{route} kernel launch failed"):
         verify.pairwise_l2_threshold_batched(a, a, 1.0,
                                              verify.LaunchPlan(route))
+
+
+def test_strided_operands_are_refused():
+    """The kernel reads its operands' memory row after row: a strided view
+    raises instead of being read as other rows."""
+    a = torch.zeros(1, 16, 8).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        verify.pairwise_l2_threshold_batched(a, a.contiguous(), 1.0,
+                                             verify.LaunchPlan("tc"))
