@@ -34,6 +34,12 @@ indexing or pageable H2D copy on the dispatch path.
 The compaction capacity (pairs per edge) adapts: a batch whose densest
 edge overflows it is re-compacted from its still-resident d2/mask at the
 next power of two, and the larger capacity sticks for later batches.
+
+Tracing: the device engine's dispatch and collect are ``verify.dispatch``
+and ``verify.collect`` spans. Inside a collect, ``device.sync`` covers the
+first fetch, which waits for the batch's kernels (and an overflow's
+re-compaction), and ``verify.emit`` the other fetches and the per-edge id
+mapping.
 """
 from __future__ import annotations
 
@@ -393,18 +399,25 @@ class DeviceVerifyEngine(_EngineBase):
         t0 = time.perf_counter()
         # host time since dispatch ran concurrently with the kernels
         self._stat("d2h_overlap_s", max(0.0, t0 - t_dispatch))
-        counts = out[0].cpu().numpy()
-        top = int(counts.max()) if counts.size else 0
-        if top > k_cap:
-            # capacity overflow: the output was sized too small, not
-            # wrong — re-compact at the next pow2, which sticks
-            k_cap = min(next_pow2(top), self.cap * self.cap)
-            self.pair_cap = max(self.pair_cap, k_cap)
-            self._stat("device_compact_overflows", 1)
-            self.tracer.instant("verify.overflow", top=top, k_cap=k_cap)
-            out = compact_pairs(d2, mask, *lanes, k_cap)
+        # the first fetch waits for the batch's kernels
+        with self.tracer.span("device.sync", edges=len(metas)):
             counts = out[0].cpu().numpy()
+            top = int(counts.max()) if counts.size else 0
+            if top > k_cap:
+                # capacity overflow: the output was sized too small, not
+                # wrong — re-compact at the next pow2, which sticks
+                k_cap = min(next_pow2(top), self.cap * self.cap)
+                self.pair_cap = max(self.pair_cap, k_cap)
+                self._stat("device_compact_overflows", 1)
+                self.tracer.instant("verify.overflow", top=top,
+                                    k_cap=k_cap)
+                out = compact_pairs(d2, mask, *lanes, k_cap)
+                counts = out[0].cpu().numpy()
         del d2, mask
+        emit = self.tracer.span("verify.emit")
+        emit.__enter__()
+        if self.tracer.enabled:
+            emit.set(pairs=int(counts.sum()))
         rows = out[1].cpu().numpy()
         cols = out[2].cpu().numpy()
         dists = out[3].cpu().numpy()
@@ -427,6 +440,7 @@ class DeviceVerifyEngine(_EngineBase):
             self.pairs_out.append(np.stack([pa, pb], axis=1)
                                   .astype(np.int64))
             self.dists_out.append(d.astype(np.float32))
+        emit.__exit__(None, None, None)
         self.compute_s += time.perf_counter() - t0
         span.__exit__(None, None, None)
 

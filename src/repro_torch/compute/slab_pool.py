@@ -12,11 +12,13 @@ and pays one new transfer.
 
 The transfer is queued at first touch (``repro_torch.device.to_device``:
 pinned staging copy, ``non_blocking`` copy on the current stream), so it
-never blocks the host behind the batch in flight. Lifetime: every consumer
-runs on that same stream, so dropping the pool's reference at eviction is
-safe — the caching allocator reuses the memory only for work queued after
-the batches that read it. A copy on a side stream would need
-``record_stream`` or an event wait; this pool uses none.
+never blocks the host behind the batch in flight. Its host side is traced
+as an ``h2d.stage`` span (args ``bucket``, ``bytes``); a hit records
+nothing. Lifetime: every consumer runs on that same stream, so dropping
+the pool's reference at eviction is safe — the caching allocator reuses
+the memory only for work queued after the batches that read it. A copy on
+a side stream would need ``record_stream`` or an event wait; this pool
+uses none.
 
 Counters match the JAX package's pool event for event: ``h2d_transfers``
 and ``h2d_bytes`` at each first touch, ``device_slab_hits`` and
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import to_device
+from repro_torch.obs import NOOP_SPAN
 
 
 class DeviceSlabPool:
@@ -63,16 +66,15 @@ class DeviceSlabPool:
                 self.stats.add("h2d_transfers_saved", 1)
             return dev
         host = np.asarray(host_vecs, np.float32)
-        dev = to_device(host, self.device)
+        with (self.tracer.span("h2d.stage", bucket=b, bytes=int(host.nbytes))
+              if self.tracer is not None else NOOP_SPAN):
+            dev = to_device(host, self.device)
         self._slabs[b] = dev
         self.transfers += 1
         self.h2d_bytes += int(host.nbytes)
         if self.stats is not None:
             self.stats.add("h2d_transfers", 1)
             self.stats.add("h2d_bytes", int(host.nbytes))
-        if self.tracer is not None:
-            self.tracer.instant("h2d.stage", bucket=b,
-                                bytes=int(host.nbytes))
         if self.on_transfer is not None:
             self.on_transfer(int(host.nbytes))
         return dev

@@ -322,12 +322,16 @@ class JoinExecutor:
         compute_t = engine.compute_s  # engine time in stage/dispatch/extract
 
         pairs_list, dists_list = engine.results()
-        if pairs_list:
-            pairs, dists = dedup_pairs(np.concatenate(pairs_list),
-                                       np.concatenate(dists_list))
-        else:
-            pairs = np.zeros((0, 2), np.int64)
-            dists = np.zeros(0, np.float32)
+        with tracer.span("join.dedup") as dedup_span:
+            if pairs_list:
+                pairs = np.concatenate(pairs_list)
+                dedup_span.set(pairs=len(pairs))
+                pairs, dists = dedup_pairs(pairs,
+                                           np.concatenate(dists_list))
+            else:
+                dedup_span.set(pairs=0)
+                pairs = np.zeros((0, 2), np.int64)
+                dists = np.zeros(0, np.float32)
 
         io_stats = self.store.stats.snapshot()
         timings = {"plan": plan_seconds, "execute": exec_seconds,

@@ -578,6 +578,9 @@ class DiskJoinIndex:
         t0 = time.perf_counter()
         graph = build_bucket_graph(self.meta, cfg, device=self.device)
         graph_s = time.perf_counter() - t0
+        # same interval as the timings' graph entry
+        self._tracer().complete("join.graph", t0, graph_s,
+                                buckets=self.meta.num_buckets)
         self._graph_cache[key] = graph
         return graph, graph_s, key
 
@@ -585,8 +588,10 @@ class DiskJoinIndex:
         key = (gkey, cfg.order_strategy, cfg.reorder, cache_buckets)
         order = self._order_cache.get(key)
         if order is None:
-            order = ordering.compute_node_order(graph, self.meta, cfg,
-                                                cache_buckets)
+            with self._tracer().span("join.order",
+                                     strategy=cfg.order_strategy):
+                order = ordering.compute_node_order(graph, self.meta, cfg,
+                                                    cache_buckets)
             self._order_cache[key] = order
         return order
 
@@ -885,9 +890,17 @@ class DiskJoinIndex:
 
         ``k_cap_init`` seeds the compaction capacity from the wave plan's
         estimate upper bound (``plan_mode="on"``) instead of the fixed
-        256; the overflow re-dispatch stays as the fallback."""
+        256; the overflow re-dispatch stays as the fallback.
+
+        Each verified bucket records four spans: ``h2d.stage`` (the pad and
+        the slab's and row index's copies), ``query.launch`` (the gather,
+        the E = 1 tile and the compaction queued), ``device.sync`` (the
+        count's fetch, which waits for them, and an overflow's relaunch)
+        and ``query.emit`` (the other fetches and the per-query fan-out)."""
         cap = self.bucket_capacity
         dev = self.device
+        tr = self._tracer()
+        slab_bytes = cap * self.dim * 4
         q_dev = to_device(Q, dev)                       # staged ONCE
         self.stats.add("h2d_transfers", 1)
         self.stats.add("h2d_bytes", int(Q.nbytes))
@@ -906,37 +919,45 @@ class DiskJoinIndex:
                 # per-bucket staging baseline would re-transfer
                 self.stats.add("device_slab_hits", 1)
                 self.stats.add("h2d_transfers_saved", 1)
-            slab = vecs
-            if slab.shape[0] != cap:  # fallback reads come unpadded
-                slab = np.concatenate(
-                    [slab, np.full((cap - slab.shape[0], slab.shape[1]),
-                                   PAD_COORD, np.float32)])
-            slab_dev = to_device(np.asarray(slab, np.float32), dev)
-            self.stats.add("h2d_transfers", 1)
-            self.stats.add("h2d_bytes", int(slab.nbytes))
             qidx = np.asarray(rows_alive, np.int64)
             nq = qidx.size
-            idx = np.zeros(next_pow2(nq), np.int64)
-            idx[:nq] = qidx
-            idx_dev = to_device(idx, dev)
-            while True:
-                counts, r, c, d = query_verify_compact(
-                    q_dev, idx_dev, nq, slab_dev, eps, state["k_cap"])
-                k = int(counts.cpu()[0])
-                if k <= state["k_cap"]:
-                    break
-                state["k_cap"] = next_pow2(k)
-            if k == 0:
-                return
-            qrows = r[0, :k].cpu().numpy()
-            cols = c[0, :k].cpu().numpy()
-            dists = d[0, :k].cpu().numpy()
-            lids = ids_[:n]
-            for row in np.unique(qrows):
-                sel = qrows == row
-                qi = int(qidx[row])
-                acc_ids[qi].append(lids[cols[sel]].astype(np.int64))
-                acc_d[qi].append(dists[sel].astype(np.float32))
+            with tr.span("h2d.stage", bucket=b, bytes=slab_bytes):
+                slab = vecs
+                if slab.shape[0] != cap:  # fallback reads come unpadded
+                    slab = np.concatenate(
+                        [slab, np.full((cap - slab.shape[0], slab.shape[1]),
+                                       PAD_COORD, np.float32)])
+                slab_dev = to_device(np.asarray(slab, np.float32), dev)
+                idx = np.zeros(next_pow2(nq), np.int64)
+                idx[:nq] = qidx
+                idx_dev = to_device(idx, dev)
+            self.stats.add("h2d_transfers", 1)
+            self.stats.add("h2d_bytes", int(slab.nbytes))
+            with tr.span("query.launch", bucket=b, queries=nq):
+                out = query_verify_compact(q_dev, idx_dev, nq, slab_dev,
+                                           eps, state["k_cap"])
+            with tr.span("device.sync", bucket=b):
+                k = int(out[0].cpu()[0])
+                if k > state["k_cap"]:
+                    # capacity overflow: relaunch at the next pow2, which
+                    # sticks for the wave's later buckets
+                    state["k_cap"] = next_pow2(k)
+                    out = query_verify_compact(q_dev, idx_dev, nq, slab_dev,
+                                               eps, state["k_cap"])
+                    k = int(out[0].cpu()[0])
+            with tr.span("query.emit", bucket=b, members=k):
+                if k == 0:
+                    return
+                _, r, c, d = out
+                qrows = r[0, :k].cpu().numpy()
+                cols = c[0, :k].cpu().numpy()
+                dists = d[0, :k].cpu().numpy()
+                lids = ids_[:n]
+                for row in np.unique(qrows):
+                    sel = qrows == row
+                    qi = int(qidx[row])
+                    acc_ids[qi].append(lids[cols[sel]].astype(np.int64))
+                    acc_d[qi].append(dists[sel].astype(np.float32))
 
         return verify
 
