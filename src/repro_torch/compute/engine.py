@@ -327,8 +327,8 @@ class DeviceVerifyEngine(_EngineBase):
         ea = self.cache.checkout(bu)
         eb = self.cache.checkout(bv)
         try:
-            da = self.pool.operand(bu, ea[0])
-            db = self.pool.operand(bv, eb[0])
+            da = self.pool.operand(bu, ea[0], ea[3])
+            db = self.pool.operand(bv, eb[0], eb[3])
             # id sidecars live in recyclable cache slots: copy the live
             # rows so the pins can drop now (the operands are device copies)
             meta = (np.array(ea[1][:ea[2]]), ea[2],

@@ -13,8 +13,8 @@ pass ε), never by their distance alone.
 Batched dispatch: edges accumulate into ``JoinConfig.verify_batch``-sized
 batches verified by a verify engine (``repro_torch.compute``) with one
 kernel launch per flush; cache-evicted slabs stay alive through the
-pending batch's references (Python references in sync mode, buffer-pool
-pins in prefetch mode, device copies in device compute mode).
+pending batch's pins (slot references in sync mode, buffer-pool pins in
+prefetch mode, device copies in device compute mode).
 
 I/O modes (``JoinConfig.io_mode``): ``"sync"`` reads every missed bucket
 inline; ``"prefetch"`` consumes slabs from ``repro_torch.io``'s
@@ -31,12 +31,14 @@ byte-identical results.
 """
 from __future__ import annotations
 
+import collections
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.compute import make_verify_engine
+from repro_torch.compute.slab_pool import HostSlot
 from repro_torch.core import cache as cache_mod
 from repro_torch.core import ordering
 from repro_torch.core.bucket_graph import candidate_pair_count
@@ -55,43 +57,113 @@ PAD_COORD = 1e15  # padded rows: astronomically far from everything
 class BucketCache:
     """Padded bucket slabs (host staging), driven by the cache schedule.
 
-    The sync I/O backend: ``load`` reads inline on the executor thread.
+    The sync I/O backend: ``load`` reads inline on the executor thread,
+    straight into a slot of an arena of padded ``(capacity_rows, dim)``
+    float32 slabs and their int64 id sidecars (``HostSlot``s), allocated
+    once per cache at ``slots`` slots: in pinned memory when ``pin`` (a
+    CUDA join), so the device pool DMAs a slab from its slot with no
+    staging copy. Pad rows are written once, when a slot is made; a refill
+    re-pads only the rows its previous bucket held (``sizes``: each
+    bucket's row count, so the read knows how far it writes).
+
     Shares the ``checkout``/``release`` surface with
-    ``repro_torch.io.PrefetchedBucketCache`` (here release is a no-op —
-    Python references keep evicted slabs alive for pending verify
-    batches).
+    ``repro_torch.io.PrefetchedBucketCache``: a slot's residency and each
+    checkout hold a reference, and the slot is refilled only once it is
+    evicted, released by every pending verify batch and past its last H2D
+    copy (``copy_done``). A load that finds no such slot waits on the
+    oldest copy when two or more are in flight (``h2d_slot_waits``); else
+    it adds a slot (``cache_slot_grows``), as when every slot is resident
+    or pinned, so a pending host batch never deadlocks the walk.
     """
 
-    def __init__(self, store: BucketedVectorStore, capacity_rows: int,
-                 retries: int = 0, retry_backoff_s: float = 0.005,
-                 stats=None):
+    def __init__(self, store: BucketedVectorStore, sizes: np.ndarray,
+                 capacity_rows: int, retries: int = 0,
+                 retry_backoff_s: float = 0.005, stats=None,
+                 slots: int = 2, pin: bool = False):
         self.store = store
+        self.sizes = sizes
         self.capacity_rows = capacity_rows
         self.retries = max(0, int(retries))
         self.retry_backoff_s = float(retry_backoff_s)
         self.stats = stats
-        self._slabs: dict[int, tuple[np.ndarray, np.ndarray, int]] = {}
+        self.pin = pin
+        self._slabs: dict[int, tuple[np.ndarray, np.ndarray, int,
+                                     HostSlot]] = {}
+        self._free = self._new_slots(slots)
+        self._draining: collections.deque[HostSlot] = collections.deque()
+        self.slots = slots
         self.loads = 0
+        self.slot_waits = 0
+        self.slot_grows = 0
+
+    def _new_slots(self, k: int) -> list[HostSlot]:
+        vecs = torch.empty((k, self.capacity_rows, self.store.dim),
+                           dtype=torch.float32, pin_memory=self.pin)
+        vecs.fill_(PAD_COORD)
+        ids = np.full((k, self.capacity_rows), -1, np.int64)
+        return [HostSlot(vecs[i], ids[i], self.pin) for i in range(k)]
 
     def __contains__(self, b: int) -> bool:
         return b in self._slabs
 
     load_issued = True  # sync loads never need a pipeline to catch up
 
+    def _count(self, field: str) -> None:
+        if self.stats is not None:
+            self.stats.add(field, 1)
+
+    def _take_slot(self) -> HostSlot:
+        if not self._free:
+            for slot in [s for s in self._draining if s.copy_done.query()]:
+                self._draining.remove(slot)
+                self._free.append(slot)
+        # what still drains has its copy in flight
+        if not self._free and len(self._draining) >= 2:
+            # a task first-touches at most its two endpoints before the
+            # next load, so the oldest of two copies in flight is nearly
+            # done: wait for it rather than pin a slot for the whole join
+            slot = self._draining.popleft()
+            slot.copy_done.synchronize()
+            self.slot_waits += 1
+            self._count("h2d_slot_waits")
+            self._free.append(slot)
+        if self._free:
+            return self._free.pop()
+        self.slots += 1
+        self.slot_grows += 1
+        self._count("cache_slot_grows")
+        return self._new_slots(1)[0]
+
+    def _unref(self, slot: HostSlot) -> None:
+        slot.refs -= 1
+        if slot.refs == 0:
+            (self._draining if slot.copy_done is not None
+             else self._free).append(slot)
+
     def load(self, b: int) -> None:
-        vecs, ids = read_with_retry(
-            lambda: self.store.read_bucket(b), retries=self.retries,
-            backoff_s=self.retry_backoff_s, stats=self.stats)
-        n = vecs.shape[0]
-        pad = self.capacity_rows - n
-        if pad > 0:
-            vecs = np.concatenate(
-                [vecs, np.full((pad, vecs.shape[1]), PAD_COORD, vecs.dtype)])
-        self._slabs[b] = (np.asarray(vecs, np.float32), ids, n)
+        slot = self._take_slot()
+        # rows past both this bucket and the slot's last one are pad rows
+        rows = max(int(self.sizes[b]), slot.live)
+        slot.live = rows  # what a failed read may have written
+        try:
+            n = read_with_retry(
+                lambda: self.store.read_bucket_into(
+                    b, slot.vecs[:rows], slot.ids[:rows],
+                    pad_value=PAD_COORD),
+                retries=self.retries, backoff_s=self.retry_backoff_s,
+                stats=self.stats)
+        except BaseException:
+            self._free.append(slot)
+            raise
+        slot.live = n
+        slot.refs = 1
+        self._slabs[b] = (slot.vecs, slot.ids, n, slot)
         self.loads += 1
 
     def evict(self, b: int) -> None:
-        self._slabs.pop(b, None)
+        entry = self._slabs.pop(b, None)
+        if entry is not None:
+            self._unref(entry[3])
 
     def get(self, b: int):
         return self._slabs[b]
@@ -100,11 +172,12 @@ class BucketCache:
         return self._slabs[b][2]
 
     def checkout(self, b: int):
-        vecs, ids, n = self._slabs[b]
-        return (vecs, ids, n, None)
+        entry = self._slabs[b]
+        entry[3].refs += 1
+        return entry
 
     def release(self, entry) -> None:
-        pass
+        self._unref(entry[3])
 
     def close(self) -> None:
         pass
@@ -187,10 +260,14 @@ class JoinExecutor:
                 # device telemetry (h2d/compaction counters) needs a
                 # stats surface even without the prefetch pipeline
                 stats = PipelineStats()
-            return BucketCache(self.store, self.bucket_capacity,
+            return BucketCache(self.store, self.meta.sizes,
+                               self.bucket_capacity,
                                retries=self.config.io_retries,
                                retry_backoff_s=self.config.io_retry_backoff_s,
-                               stats=stats), stats
+                               stats=stats,
+                               slots=min(self.cache_buckets,
+                                         self.meta.num_buckets or 1),
+                               pin=self.device.type == "cuda"), stats
         cap_buckets = min(self.cache_buckets, self.meta.num_buckets or 1)
         pool_slabs = self.config.io_pool_slabs
         if pool_slabs is None:

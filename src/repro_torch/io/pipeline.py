@@ -69,6 +69,10 @@ class PipelineStats:
     # device verify pipeline (repro.compute, compute_mode="device"):
     # slab H2D transfers are bounded by cache residencies, not edge count
     h2d_transfers: int = 0           # host→device transfers issued
+    h2d_direct: int = 0              # slab first touches from a pinned slot
+    h2d_staged: int = 0              # slab first touches through to_device
+    h2d_slot_waits: int = 0          # sync loads that waited on a slot's copy
+    cache_slot_grows: int = 0        # sync cache slots past cache_buckets
     h2d_bytes: int = 0               # bytes moved host→device
     d2h_bytes: int = 0               # result bytes fetched device→host
     h2d_transfers_saved: int = 0     # operand refs served device-resident

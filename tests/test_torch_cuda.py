@@ -370,6 +370,10 @@ def test_slice_byte_parity_and_launches(cuda, tmp_path):
         + ops.LAUNCHES["pairwise_l2_threshold"])
     assert np.array_equal(h.pairs, d.pairs)
     assert np.array_equal(h.distances, d.distances)
+    # every first touch of the sync device join DMAs from a pinned slot
+    pipe = d.io_stats["pipeline"]
+    assert pipe["h2d_direct"] == pipe["h2d_transfers"] > 0
+    assert pipe["h2d_staged"] == 0
     assert recall(d.pairs, brute_force_pairs(x, eps)) >= 0.9
     for qi, ((a, _), (b, _)) in enumerate(zip(qh, qd)):
         assert qi in set(a.tolist())
@@ -411,7 +415,12 @@ def test_prefetch_matches_sync_on_card(cuda, tmp_path):
         for mode in ("host", "device"):
             r = index.self_join(io_mode="prefetch", compute_mode=mode)
             _identical(ref_, r)
-            assert r.io_stats["pipeline"]["loads"] == r.bucket_loads
+            pipe = r.io_stats["pipeline"]
+            assert pipe["loads"] == r.bucket_loads
+            # the prefetch pool's slabs are staged, never DMA'd directly
+            assert pipe["h2d_direct"] == 0
+            if mode == "device":
+                assert pipe["h2d_staged"] == pipe["h2d_transfers"] > 0
         _assert_tc_verify_only()
         Q = x[:30] + np.float32(1e-3)
         q_sync = index.query_batch(Q)
@@ -606,6 +615,51 @@ def test_resumed_build_on_card_is_byte_identical(cuda, tmp_path,
                    fresh.self_join(compute_mode="device"))
 
 
+def test_slot_refilled_under_a_long_kernel_keeps_the_device_slab(cuda,
+                                                                  tmp_path):
+    """Two buckets first-touched from their pinned slots, then evicted and
+    a slot refilled at once while a long kernel queue runs: the refill
+    waits for a slot's copy, not for the kernels, and the device slabs hold
+    the bytes the slots held at the first touch."""
+    from repro_torch.compute import DeviceSlabPool
+    from repro_torch.core.executor import BucketCache
+    from repro_torch.core.types import resolve_bucket_capacity
+    from repro_torch.io import PipelineStats
+    _, _, index = _small_index(tmp_path, "i")
+    with index:
+        cap = resolve_bucket_capacity(index._resolve({}), index.meta.sizes)
+        stats = PipelineStats()
+        cache = BucketCache(index.store, index.meta.sizes, cap,
+                            stats=stats, slots=2, pin=True)
+        pool = DeviceSlabPool(cuda, stats)
+        for b in (0, 1):
+            cache.load(b)
+        host = [cache.get(b)[0].copy() for b in (0, 1)]
+        big = torch.randn(4096, 4096, device=cuda)
+        for _ in range(64):
+            big = big @ big / 64
+        kernels_done = torch.cuda.Event()
+        kernels_done.record()
+        devs, slots = [], []
+        for b in (0, 1):
+            entry = cache.checkout(b)
+            devs.append(pool.operand(b, entry[0], entry[3]))
+            slots.append(entry[3])
+            cache.release(entry)
+        for b in (0, 1):
+            cache.evict(b)
+            pool.evict(b)
+        cache.load(2)
+        assert not kernels_done.query(), "the refill waited on the kernels"
+        assert cache.get(2)[3] in slots and cache.slot_grows == 0
+        torch.cuda.synchronize()
+        for dev, h in zip(devs, host):
+            assert np.array_equal(dev.cpu().numpy(), h)
+        vecs, ids = index.store.read_bucket(2)
+        assert np.array_equal(cache.get(2)[0][:len(ids)], vecs)
+        assert (stats.h2d_direct, stats.h2d_staged) == (2, 0)
+
+
 SUPERSTEP_BUDGET = dict(memory_budget_bytes=1 << 17)  # a few buckets a window
 
 
@@ -636,6 +690,7 @@ def test_superstep_join_is_the_single_box_join_on_card(cuda, tmp_path,
         if mode == "device":
             assert 0 < info["h2d_transfers"] <= info["host_loads"]
             assert info["device_slab_hits"] > 0
+            assert dj._dev_pool.direct == 0   # its cache is not pinned
 
 
 def test_superstep_kill_and_resume_on_card(cuda, tmp_path):

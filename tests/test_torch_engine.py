@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import compute as jcompute  # noqa: E402
 from repro_torch import compute as tcompute  # noqa: E402
 from repro_torch.compute import engine as teng  # noqa: E402
+from repro_torch.compute.slab_pool import HostSlot  # noqa: E402
 from repro_torch.io import PipelineStats  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -207,16 +208,23 @@ def test_device_engine_overflow_recompacts(monkeypatch):
     assert np.array_equal(dh, dd)
 
 
-def test_slab_pool_transfers_once_per_residency():
+@pytest.mark.parametrize("in_slot", [False, True])
+def test_slab_pool_transfers_once_per_residency(in_slot):
+    """One transfer a residency. A slab in an unpinned cache slot (the
+    CPU's arena) is staged like any other."""
     stats = PipelineStats()
     pool = tcompute.DeviceSlabPool(CPU, stats)
-    slab = np.ones((4, 3), np.float32)
-    a = pool.operand(7, slab)
+    host = torch.ones((4, 3))
+    slot = (HostSlot(host, np.zeros(4, np.int64), pinned=False)
+            if in_slot else None)
+    slab = host.numpy()
+    a = pool.operand(7, slab, slot)
     slab[:] = 2.0                       # the pool holds its own copy
-    assert torch.equal(pool.operand(7, slab), a) and a[0, 0] == 1.0
+    assert torch.equal(pool.operand(7, slab, slot), a) and a[0, 0] == 1.0
     pool.evict(7)
-    pool.operand(7, slab)               # a new residency transfers again
+    pool.operand(7, slab, slot)         # a new residency transfers again
     snap = stats.snapshot()
     assert (snap["h2d_transfers"], snap["device_slab_hits"],
             snap["h2d_transfers_saved"]) == (2, 1, 1)
+    assert (snap["h2d_staged"], snap["h2d_direct"], pool.direct) == (2, 0, 0)
     assert snap["h2d_bytes"] == 2 * slab.nbytes

@@ -58,6 +58,8 @@ def test_self_join_host_and_device_match_jax(built):
     for k in EVENT_COUNTERS:
         assert tp[k] == jp[k], k
     assert tp["h2d_transfers"] > 0 and tp["device_slab_hits"] > 0
+    # the CPU's slot arena is not pinned: every first touch is staged
+    assert (tp["h2d_staged"], tp["h2d_direct"]) == (tp["h2d_transfers"], 0)
     assert set(th.timings) >= {"bucketing", "graph", "orchestration",
                                "execute", "io_wait", "compute"}
 

@@ -1,9 +1,11 @@
-"""The port's prefetch I/O (``repro_torch.io.prefetcher``, the executor's
-``io_mode="prefetch"`` and the query waves' prefetched misses): the
-prefetcher's order, content, backpressure and queue bound, as
+"""The port's join I/O: the prefetcher (``repro_torch.io.prefetcher``, the
+executor's ``io_mode="prefetch"`` and the query waves' prefetched misses):
+its order, content, backpressure and queue bound, as
 ``tests/test_io_pipeline.py::TestPrefetcher`` holds the JAX package's;
-sync and prefetch joins byte-identical in the port; and the port's
-prefetch join against the JAX package's on the same data."""
+the sync ``BucketCache``'s slot arena: pins, refills, pad rows, copy
+guards and growth; sync and prefetch joins byte-identical in the port;
+and the port's sync and prefetch joins against the JAX package's on the
+same data."""
 import threading
 
 import numpy as np
@@ -14,7 +16,9 @@ torch = pytest.importorskip("torch")
 from repro.core import DiskJoinIndex as JIndex  # noqa: E402
 from repro.core import JoinConfig as JJoinConfig  # noqa: E402
 from repro.store.vector_store import FlatVectorStore as JFlat  # noqa: E402
+from repro_torch.compute import HostVerifyEngine  # noqa: E402
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
+from repro_torch.core.executor import PAD_COORD, BucketCache  # noqa: E402
 from repro_torch.io import (BufferPool, PipelineStats,  # noqa: E402
                             SchedulePrefetcher)
 from repro_torch.store.vector_store import (  # noqa: E402
@@ -98,6 +102,122 @@ class TestPrefetcher:
         finally:
             pf.close()
         assert 1 <= stats.max_queue_depth <= 3
+
+
+class _Copy:
+    """Stands in for the CUDA event after a slot's H2D copy."""
+
+    def __init__(self, done: bool):
+        self.done = done
+        self.waits = 0
+
+    def query(self) -> bool:
+        return self.done
+
+    def synchronize(self) -> None:
+        self.waits += 1
+        self.done = True
+
+
+def _arena(tmp_path, slots):
+    store, sizes = _bucketed_store(tmp_path)
+    stats = PipelineStats()
+    return (BucketCache(store, sizes, int(sizes.max()), stats=stats,
+                        slots=slots), store, sizes, stats)
+
+
+class TestBucketCacheArena:
+    def test_pins_hold_a_slot_until_every_release(self, tmp_path):
+        cache, store, sizes, stats = _arena(tmp_path, 2)
+        cache.load(0)
+        a, b = cache.checkout(0), cache.checkout(0)
+        slot = a[3]
+        assert slot.refs == 3
+        cache.evict(0)
+        cache.release(a)
+        cache.load(1)              # the free slot, not bucket 0's
+        assert cache.get(1)[3] is not slot
+        cache.load(2)              # 0's slot is still pinned: one more
+        assert cache.get(2)[3] is not slot
+        assert cache.slot_grows == stats.cache_slot_grows == 1
+        ref_vecs, _ = store.read_bucket(0)
+        np.testing.assert_array_equal(b[0][:b[2]], ref_vecs)
+        cache.release(b)
+        assert slot.refs == 0
+        cache.evict(1)
+        cache.load(3)              # the pool of three refills, no growth
+        assert cache.slots == 3 and cache.slot_grows == 1
+
+    def test_smaller_bucket_overwrites_a_larger_ones_rows(self, tmp_path):
+        """A fresh slot and a slot a larger bucket held both read as the
+        bucket's rows, then pad rows at ``PAD_COORD`` and ids -1."""
+        cache, store, sizes, _ = _arena(tmp_path, 1)
+        big, small = int(np.argmax(sizes)), int(np.argmin(sizes))
+        assert sizes[big] > sizes[small]
+        for b in (small, big, small):
+            cache.load(b)
+            vecs, ids, n, _ = cache.get(b)
+            assert n == sizes[b]
+            ref_vecs, ref_ids = store.read_bucket(b)
+            np.testing.assert_array_equal(vecs[:n], ref_vecs)
+            np.testing.assert_array_equal(ids[:n], ref_ids)
+            assert (vecs[n:] == np.float32(PAD_COORD)).all()
+            assert (ids[n:] == -1).all()
+            cache.evict(b)
+        assert cache.slots == 1
+
+    @pytest.mark.parametrize("copies,waits,grows", [
+        ((True,), 0, 0), ((False,), 0, 1), ((False, False), 1, 0),
+        ((False, True), 0, 0)])
+    def test_refill_waits_only_behind_two_copies(self, tmp_path, copies,
+                                                 waits, grows):
+        """A slot is refilled only once its last H2D copy has passed. With
+        one copy in flight a new slot is made; with two, the load waits
+        for the oldest; a finished copy costs neither."""
+        cache, _, _, stats = _arena(tmp_path, len(copies))
+        fakes = []
+        for b, done in enumerate(copies):
+            cache.load(b)
+            fakes.append(_Copy(done))
+            cache.get(b)[3].copy_done = fakes[-1]
+        for b in range(len(copies)):
+            cache.evict(b)
+        cache.load(len(copies))
+        assert sum(f.waits for f in fakes) == waits
+        assert cache.slot_waits == stats.h2d_slot_waits == waits
+        assert cache.slot_grows == stats.cache_slot_grows == grows
+
+    def test_pending_host_batch_keeps_its_slabs(self, tmp_path):
+        """Slabs evicted under a pending host batch are not refilled: the
+        arena grows instead, counted, and the batch verifies the bytes it
+        was given."""
+        eps = 3.5
+        store, sizes = _bucketed_store(tmp_path)
+        out = []
+        for slots in (2, 12):
+            stats = PipelineStats()
+            cache = BucketCache(store, sizes, int(sizes.max()),
+                                stats=stats, slots=slots)
+            eng = HostVerifyEngine(
+                cache, epsilon=eps, capacity_rows=cache.capacity_rows,
+                dim=store.dim, verify_batch=64, device=torch.device("cpu"),
+                pstats=stats)
+            cache.load(0)
+            cache.load(1)
+            eng.enqueue(0, 1, False)
+            eng.enqueue(0, 0, True)
+            cache.evict(0)
+            cache.evict(1)
+            for b in (2, 3):
+                cache.load(b)
+                eng.enqueue(b, b, True)
+            eng.finish()
+            assert stats.cache_slot_grows == (2 if slots == 2 else 0)
+            pairs, dists = eng.results()
+            out.append((np.concatenate(pairs), np.concatenate(dists)))
+        assert out[0][0].shape[0] > 0
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        np.testing.assert_array_equal(out[0][1], out[1][1])
 
 
 @pytest.fixture(scope="module")
@@ -196,3 +316,31 @@ def test_worker_threads_make_no_torch_call(indexes):
         threading.setprofile(None)
     assert io_frames, "no I/O thread ran"
     assert not seen, sorted(set(seen))
+
+
+@pytest.mark.parametrize("override,mode", [
+    (dict(), "host"),
+    (dict(compute_mode="device"), "device"),
+    (dict(plan_mode="on", compute_mode="auto", emulate_xfer_gb_s=50.0),
+     "mixed"),
+])
+def test_sync_slot_arena_joins_match_jax(indexes, override, mode):
+    """Sync joins at a cache of a few buckets, where pending host batches
+    grow the slot arena: every compute mode gives the sync host join's
+    bytes and the JAX package's pairs. On the CPU no slot is pinned, so
+    every first touch is staged."""
+    x, eps, port, ref = indexes
+    small = dict(memory_budget_bytes=1 << 17)
+    host = port.self_join(**small)
+    t = port.self_join(**small, **override)
+    assert (t.plan.compute_mode if t.plan else mode) == mode
+    assert_identical(host, t)
+    assert_same_pairs(x, eps, t, ref.self_join(**small, **override))
+    pipe = t.io_stats["pipeline"]
+    assert pipe["h2d_direct"] == pipe["h2d_slot_waits"] == 0
+    if mode == "device":
+        assert pipe["h2d_staged"] == pipe["h2d_transfers"] > 0
+    else:   # the host engine counts two staging transfers a flush
+        assert (pipe["h2d_staged"] > 0) == (mode == "mixed")
+        assert pipe["h2d_staged"] < pipe["h2d_transfers"]
+    assert (pipe["cache_slot_grows"] > 0) == (mode != "device")
