@@ -25,6 +25,13 @@ compaction, retunes the flush threshold per schedule region and routes
 each verify unit to the host or the device engine
 (``compute_mode="auto"``).
 
+Tracing: while the tracer is on, a join that may verify on the card
+tallies the ``tc`` route's in-band re-checks
+(``kernels.pairwise_l2.counting_rechecks``, unless a tally is already
+open) and records them after the engine's last collect as one
+``verify.rechecks`` instant (arg ``pairs``: the outputs recomputed in
+float32). With the tracer off the kernels get no tally.
+
 Port of the JAX package's ``core/executor.py``. Every combination of I/O
 mode, compute mode and plan replays the same cache schedule and gives
 byte-identical results.
@@ -32,6 +39,7 @@ byte-identical results.
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import numpy as np
@@ -48,6 +56,7 @@ from repro_torch.core.types import (BucketGraph, BucketMeta, JoinConfig,
                                     resolve_cache_buckets)
 from repro_torch.io import PipelineStats, PrefetchedBucketCache
 from repro_torch.io.retry import read_with_retry
+from repro_torch.kernels import pairwise_l2
 from repro_torch.obs import get_tracer
 from repro_torch.store.vector_store import BucketedVectorStore
 
@@ -306,6 +315,14 @@ class JoinExecutor:
                                pstats=pstats)
         return self.planner
 
+    def _recheck_tally(self):
+        """The re-check tally for a traced join that may verify on the
+        card (yields the counts), else a context that yields None."""
+        if (self.tracer.enabled and self.config.compute_mode != "host"
+                and pairwise_l2.RECHECKS is None):
+            return pairwise_l2.counting_rechecks(self.device)
+        return contextlib.nullcontext()
+
     def run(self, graph: BucketGraph,
             node_order: np.ndarray | None = None) -> JoinResult:
         tasks, access_seq, schedule, plan_seconds = self.plan(graph,
@@ -375,22 +392,28 @@ class JoinExecutor:
             engine.set_verify_batch(vb)
 
         try:
-            for task in tasks:
-                if task[0] == "touch":
-                    b = int(task[1])
-                    ensure(b)
-                    if self.intra_join and cache.rows(b) >= 2:
+            with self._recheck_tally() as rechecks:
+                for task in tasks:
+                    if task[0] == "touch":
+                        b = int(task[1])
+                        ensure(b)
+                        if self.intra_join and cache.rows(b) >= 2:
+                            if unit_params is not None:
+                                tune()
+                            engine.enqueue(b, b, True)
+                    else:
+                        _, u, v = task
+                        ensure(int(u))
+                        ensure(int(v))
                         if unit_params is not None:
                             tune()
-                        engine.enqueue(b, b, True)
-                else:
-                    _, u, v = task
-                    ensure(int(u))
-                    ensure(int(v))
-                    if unit_params is not None:
-                        tune()
-                    engine.enqueue(int(u), int(v), False)
-            engine.finish()
+                        engine.enqueue(int(u), int(v), False)
+                engine.finish()
+                if rechecks is not None:
+                    # the last collect has waited for every kernel that
+                    # adds to the tally
+                    tracer.instant("verify.rechecks",
+                                   pairs=int(rechecks[0].item()))
         finally:
             engine.abort()
             cache.close()

@@ -205,6 +205,47 @@ def test_verify_tc_gives_simt_mask(cuda, kind, d):
     assert counts[1].item() == 0
 
 
+def test_recheck_instant_is_the_kernels_tally(cuda, tmp_path, monkeypatch):
+    """A traced device join at d 960 records one ``verify.rechecks``
+    instant whose ``pairs`` are the outputs the ``tc`` route recomputed, as
+    ``counting_rechecks`` tallies the same join; untraced it records
+    nothing and its kernels get a null tally pointer. The rows are
+    ``near_eps_lanes``' near-ε pairs, so the band holds hundreds."""
+    from tc_emulation import near_eps_lanes
+
+    from repro_torch.obs import trace_session
+    a, b, eps2 = near_eps_lanes(4, 256, 192, 960, seed=31)
+    x = np.concatenate([a.reshape(-1, 960), b.reshape(-1, 960)])
+    cfg = JoinConfig(epsilon=float(np.sqrt(eps2)), num_buckets=2,
+                     pad_align=128, memory_budget_bytes=x.nbytes)
+    store = FlatVectorStore.from_array(str(tmp_path / "x.bin"), x)
+    pointers = []
+    real = verify.recheck_counter
+    monkeypatch.setattr(verify, "recheck_counter",
+                        lambda dev, which: pointers.append(
+                            real(dev, which)) or pointers[-1])
+    with DiskJoinIndex.build(store, cfg, str(tmp_path / "i")) as index:
+        pointers.clear()
+        with trace_session() as tr:
+            traced = index.self_join(compute_mode="device")
+        marks = [e for e in tr.events()
+                 if e["ph"] == "i" and e["name"] == "verify.rechecks"]
+        assert pointers and all(p != 0 for p in pointers)
+        pointers.clear()
+        with verify.counting_rechecks(cuda) as counts:
+            index.self_join(compute_mode="device")
+        torch.cuda.synchronize()
+        tally = int(counts[0].item())
+        pointers.clear()
+        plain = index.self_join(compute_mode="device")
+    assert pointers and all(p == 0 for p in pointers)
+    assert verify.RECHECKS is None
+    assert len(marks) == 1 and tally > 0
+    assert marks[0]["args"] == {"pairs": tally}
+    assert np.array_equal(plain.pairs, traced.pairs)
+    print(f"d 960: {tally} outputs of the join recomputed")
+
+
 @pytest.mark.parametrize("d", [96, 128])
 def test_simt_kernel_is_the_fma_chain(cuda, d):
     """The CUDA-core kernel's d² bytes are ``simt_emulation``'s: norms and

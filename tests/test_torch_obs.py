@@ -129,10 +129,11 @@ PORT_ONLY_SPANS = ("join.graph", "join.order", "join.dedup", "device.sync",
 def test_chrome_trace_events_match_jax(built):
     """A traced sync join (device mode) and a query wave: the exported
     Chrome trace holds the same events, by name and phase, the same
-    number of times, and both pass the schema check. Two differences are
-    the port's own: it records slab staging as an ``h2d.stage`` span where
-    the reference records an instant, once a staging each, and it records
-    the spans of ``PORT_ONLY_SPANS``, each at least once."""
+    number of times, and both pass the schema check. Three differences
+    are the port's own: it records slab staging as an ``h2d.stage`` span
+    where the reference records an instant, once a staging each, it
+    records the spans of ``PORT_ONLY_SPANS``, each at least once, and its
+    device engine records one ``verify.rechecks`` instant a join."""
     x, idx, root = built
     got, fractions = {}, {}
     for name, (obs, _, _) in PKG.items():
@@ -151,6 +152,7 @@ def test_chrome_trace_events_match_jax(built):
         assert port.pop((name, "X"), 0) > 0, name
     assert port.pop(("h2d.stage", "X"), 0) == \
         ref.pop(("h2d.stage", "i"), 0) > 0
+    assert port.pop(("verify.rechecks", "i"), 0) == 1
     assert port == ref
     assert {"io.read", "verify.dispatch", "query.execute"} <= \
         {n for n, _ in got["port"]}

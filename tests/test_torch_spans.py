@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import DiskJoinIndex, JoinConfig  # noqa: E402
 from repro_torch.data import clustered_vectors  # noqa: E402
+from repro_torch.kernels import pairwise_l2  # noqa: E402
 from repro_torch.obs import trace_session  # noqa: E402
 from repro_torch.store.vector_store import FlatVectorStore  # noqa: E402
 
@@ -179,3 +180,35 @@ def test_traced_and_untraced_joins_give_the_same_bytes(index_dir):
         out.append((res.pairs.tobytes(), res.distances.tobytes()))
     assert out[0] == out[1]
     assert len(out[0][0]) > 0
+
+
+def _rechecks(events):
+    return [e for e in events
+            if e["ph"] == "i" and e["name"] == "verify.rechecks"]
+
+
+def test_one_recheck_instant_a_traced_join(fresh, monkeypatch):
+    """A traced device-mode join records one ``verify.rechecks`` instant,
+    after its last collect and inside ``join.run``; the CPU path launches
+    no kernel, so it counts 0 pairs. An untraced join opens no tally, and
+    a traced one inside a tally already open leaves it alone and records
+    nothing."""
+    _, idx = fresh
+    _, events = _traced_join(idx)
+    marks = _rechecks(events)
+    assert len(marks) == 1
+    last = max(c["ts"] + c["dur"] for c in _spans(events, "verify.collect"))
+    (run,) = _spans(events, "join.run")
+    assert last - TOL_US <= marks[0]["ts"] <= run["ts"] + run["dur"] + TOL_US
+    assert marks[0]["args"] == {"pairs": 0}
+    assert pairwise_l2.RECHECKS is None
+    opened = []
+    real = pairwise_l2.counting_rechecks
+    monkeypatch.setattr(pairwise_l2, "counting_rechecks",
+                        lambda dev: opened.append(dev) or real(dev))
+    idx.self_join(compute_mode="device")
+    assert opened == [] and pairwise_l2.RECHECKS is None
+    with real(torch.device("cpu")) as outer:
+        _, events = _traced_join(idx)
+        assert pairwise_l2.RECHECKS is outer
+    assert opened == [] and _rechecks(events) == []
